@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--layers N]
 
-Phase 0 prints the card and builds the CUDA kernels from the sources in
-this checkout (``src/repro_torch/kernels/*/csrc/*.cu``, with ``nvcc``,
-into ``build/repro_torch/``).
+Phase 0 prints the card and builds the five CUDA kernels from the
+sources in this checkout (``src/repro_torch/kernels/*/csrc/*.cu``, with
+``nvcc``, all started together, into ``build/repro_torch/``).
 
 Phase 1 holds each kernel against its plain PyTorch version on the card,
 at the shapes the main path gives it and on constructed edge cases, and
-times both. Equality is exact (tolerance zero).
+times both (and, for dequantize, the one PyTorch call that computes the
+same function). Equality is exact (tolerance zero).
 
 Phase 2 is the main path: the training state of qwen1.5-0.5b at its
 published widths (``src/repro/configs/qwen1_5_0_5b.py``: 24 layers,
@@ -20,8 +21,19 @@ pre-codec (strategy stripe_aligned, codec zstd+delta, 1 MiB chunks,
 16 ranks), updating the state in place between ``stage`` and ``save``
 as a torch optimizer does; then every step is restored from the PFS on a
 3x1 cluster with L1 dropped and compared byte for byte with a host copy.
-A second manager saves an int8 anchor and delta, whose restores must
-equal the plain quantize followed by the host dequantize, exactly.
+Outside the timers, ``digest_array`` of every leaf on the card before
+each ``stage`` must equal that of the restored leaf (and a few leaves
+the host ``digest_ref`` of their host copy). A second manager saves an
+int8 anchor and delta, whose restores must equal the plain quantize
+followed by the host dequantize, and ``dequantize_tree_reference`` (one
+dequantize launch per leaf, on the card) of the staged state's
+quantized tree, exactly.
+
+Phase 3 runs the pre-fusion chain on the main path's words: the state's
+word stream (the pre-codec's own assembly) before and after a fine-tune
+of the top layers, ``xor_delta`` of the two, one ``checksum_u32`` per
+1 MiB chunk and the per-chunk dirty counts as one reduction, held equal
+to ``fused_precodec`` of the same streams; both wall times are logged.
 ``--layers`` cuts the depth (never a width) when a run must be shorter.
 
 Prints the card's name and power limit, per-step numbers, one JSON line
@@ -32,6 +44,7 @@ any check fails. Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import shutil
 import subprocess
@@ -106,6 +119,20 @@ def max_abs_err(a, b):
     if a.dtype.is_floating_point and not torch.equal(a.isnan(), b.isnan()):
         err = float("inf")
     return err
+
+
+def same_floats(a, b):
+    """Equal bit for bit, except that any NaN matches any NaN."""
+    import torch
+
+    nan = a.isnan()
+    if not torch.equal(nan, b.isnan()):
+        return False
+    for i in range(0, a.numel(), 1 << 26):
+        x, y, m = (t.reshape(-1)[i : i + (1 << 26)] for t in (a, b, nan))
+        if not torch.equal(x.view(torch.int32)[~m], y.view(torch.int32)[~m]):
+            return False
+    return True
 
 
 def bound_ms(n_bytes, n_ops):
@@ -334,6 +361,163 @@ def phase1_quantize(n_main, report):
     report["quantize"]["cases"] = errs
 
 
+def _check_cases(kernel, cases, report_key, report):
+    """Run ``cases`` (name -> thunk returning the error, 0 when equal),
+    log each, raise on the first disagreement; record the max error."""
+    errs = {}
+    for name, run in cases:
+        err = run()
+        errs[name] = err
+        log(f"phase1 {kernel} {name}: max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{kernel} {name} disagrees with its plain version")
+    report[report_key]["max_abs_err"] = max(errs.values())
+    report[report_key]["cases"] = errs
+
+
+def phase1_checksum(n_main, report):
+    import torch
+
+    from repro_torch.kernels.checksum.ops import checksum_u32, checksum_u32_plain, digest_array
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device="cuda", generator=g)
+
+    def held(w):
+        got, ref = checksum_u32(w), checksum_u32_plain(w)
+        torch.cuda.synchronize()
+        return max_abs_err(got, ref)
+
+    def empty():
+        before = checksum_u32.launches
+        got = checksum_u32(words(0))
+        assert checksum_u32.launches == before and not got.any()
+        return max_abs_err(got, checksum_u32_plain(words(0)))
+
+    def unaligned():
+        w = words(5_000_003)
+        return max(held(w[k : k + 5_000_000]) for k in (1, 2, 3))
+
+    def digest_views():
+        # views off a 16-byte boundary; the CPU copy takes the plain path
+        x = torch.randn(3_000_001, device="cuda", generator=g)
+        err = 0.0
+        for v in (x[1:], x[3:], x.to(torch.bfloat16)[1:], x.to(torch.int8)[1:],
+                  x.double()[1:], x > 0):
+            err = max(err, max_abs_err(digest_array(v).cpu(), digest_array(v.cpu())))
+        return err
+
+    w = words(n_main)
+    ms = time_ms(lambda: checksum_u32(w), reps=20)
+    plain = time_ms(lambda: checksum_u32_plain(w), reps=3, warmup=1)
+    n_bytes = 4 * n_main + 8
+    b, by = bound_ms(n_bytes, 4 * n_main)
+    report["checksum"] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                              n_words=n_main, n_bytes=n_bytes, timed_runs=20, plain_runs=3)
+    log(f"phase1 checksum_u32 time: ms={ms} plain_ms={plain} bound_ms={b} "
+        f"library_ms=None (no single PyTorch call computes the two-track sum)")
+    _check_cases("checksum_u32", [
+        ("main", lambda: held(w)),
+        ("empty", empty),
+        ("one_word", lambda: held(words(1))),
+        ("ragged_tail", lambda: held(words(1_000_003))),
+        ("index_wrap", lambda: held(words(3 * (1 << 20) + 7))),
+        ("unaligned_view", unaligned),
+        ("digest_array_views", digest_views),
+    ], "checksum", report)
+    del w
+    torch.cuda.empty_cache()
+
+
+def phase1_delta(n_main, report):
+    import torch
+
+    from repro_torch.kernels.delta.ops import xor_delta, xor_delta_plain
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device="cuda", generator=g)
+
+    def held(cur, prev, want=None):
+        d, c = xor_delta(cur, prev)
+        rd, rc = xor_delta_plain(cur, prev)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(d, rd), abs(int(c) - int(rc)))
+        if want is not None and int(c) != want:
+            raise AssertionError(f"xor_delta counted {int(c)} changed words, not {want}")
+        return err
+
+    cur = words(n_main)                  # n_main % 4 == 2: a ragged tail
+    prev = cur.clone()
+    prev[::13] ^= 0x5A5A5A5A
+    ms = time_ms(lambda: xor_delta(cur, prev), reps=20)
+    plain = time_ms(lambda: xor_delta_plain(cur, prev), reps=3, warmup=1)
+    n_bytes = 12 * n_main + 8
+    b, by = bound_ms(n_bytes, 3 * n_main)
+    report["xor_delta"] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                               n_words=n_main, n_bytes=n_bytes, timed_runs=20, plain_runs=3)
+    log(f"phase1 xor_delta time: ms={ms} plain_ms={plain} bound_ms={b} "
+        f"library_ms=None (no single PyTorch call gives the XOR and its count)")
+    small = words(4_000_001)
+    _check_cases("xor_delta", [
+        ("main", lambda: held(cur, prev, want=-(-n_main // 13))),
+        ("equal", lambda: held(small, small.clone(), want=0)),
+        ("all_changed", lambda: held(small, ~small, want=small.numel())),
+        ("ragged_tail", lambda: held(words(1_000_003), words(1_000_003))),
+    ], "xor_delta", report)
+    del cur, prev, small
+    torch.cuda.empty_cache()
+
+
+def phase1_dequantize(n_main, report):
+    import torch
+
+    from repro_torch.kernels.quantize.ops import dequantize, dequantize_plain, quantize
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(n_main, device="cuda", generator=g)
+    q, s = quantize(x)
+    del x
+    torch.cuda.empty_cache()
+
+    def held(q, s, n):
+        got, ref = dequantize(q, s, n=n), dequantize_plain(q, s, n=n)
+        torch.cuda.synchronize()
+        if not same_floats(got, ref):
+            return float("inf")
+        return max_abs_err(got, ref)
+
+    nb = 1000
+    zq, zs = q[:nb].clone(), s[:nb].clone()
+    zq[100:400], zs[100:400] = 0, 0.0
+    ns = s[:nb].clone()
+    ns[[5, 999]] = float("nan")
+    ms = time_ms(lambda: dequantize(q, s, n=n_main), reps=20)
+    plain = time_ms(lambda: dequantize_plain(q, s, n=n_main), reps=3, warmup=1)
+    library = time_ms(lambda: q * s[:, None], reps=20)
+    lib_equal = same_floats(dequantize(q, s, n=n_main), (q * s[:, None]).view(-1)[:n_main])
+    n_bytes = n_main + 4 * s.numel() + 4 * n_main
+    b, by = bound_ms(n_bytes, 2 * n_main)
+    report["dequantize"] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                                library_ms=library, library_call="q * s[:, None]",
+                                library_equal=lib_equal, n_values=n_main, n_bytes=n_bytes,
+                                timed_runs=20, plain_runs=3)
+    log(f"phase1 dequantize time: ms={ms} plain_ms={plain} bound_ms={b} "
+        f"library_ms={library} (q * s[:, None], bit-equal: {lib_equal})")
+    _check_cases("dequantize", [
+        ("main", lambda: held(q, s, n_main)),
+        ("cut_mid_block", lambda: held(q[:nb], s[:nb], nb * 128 - 51)),
+        ("cut_first_block", lambda: held(q[:nb], s[:nb], 5)),
+        ("zero_blocks", lambda: held(zq, zs, nb * 128)),
+        ("nan_scale", lambda: held(q[:nb], ns, nb * 128 - 1)),
+    ], "dequantize", report)
+    del q, s, zq, zs, ns
+    torch.cuda.empty_cache()
+
+
 # -- phase 2 --------------------------------------------------------------
 
 
@@ -376,13 +560,83 @@ def step_row(st, restore_s, rr):
     )
 
 
+# leaves whose pre-stage device digest is also held against the host
+# digest_ref of their host copy
+HOST_DIGEST_LEAVES = ("['opt']['count']", "['params']['final_norm']",
+                      "['params']['layers']['bq']", "['params']['layers']['wq']",
+                      "['step']")
+
+
+def kernel_counters():
+    from repro_torch.kernels import (
+        checksum_u32,
+        dequantize,
+        fused_precodec,
+        quantize,
+        xor_delta,
+    )
+
+    return {"fused_precodec": fused_precodec, "quantize": quantize,
+            "checksum": checksum_u32, "xor_delta": xor_delta, "dequantize": dequantize}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def device_digests(tree):
+    """(S, T) of every leaf, by ``digest_array`` on the leaf's device,
+    as one host array (n_leaves, 2) uint32."""
+    import torch
+
+    from repro_torch.kernels.checksum.ops import digest_array
+    from repro_torch.kernels.common import u32_numpy
+
+    return u32_numpy(torch.stack([digest_array(t) for _, t in leaves(tree)]))
+
+
+def check_host_digests(pre, copy, what):
+    """The pre-stage device digests of HOST_DIGEST_LEAVES against the
+    host oracle over the host copy's bytes."""
+    import numpy as np
+
+    from repro_torch.kernels.checksum.ref import checksum_ref_np
+
+    names = [n for n, _ in copy]
+    for name in HOST_DIGEST_LEAVES:
+        i = names.index(name)
+        words = copy[i][1].reshape(-1).numpy().view(np.uint32)
+        if tuple(int(v) for v in pre[i]) != checksum_ref_np(words):
+            raise AssertionError(f"{what}: device digest of {name} != host digest_ref")
+
+
+def clone_raw_leaves(qtree):
+    """A copy of a quantized tree: its unquantized leaves are the state's
+    own tensors, which the in-place train step would change."""
+    from repro_torch.utils.treelib import tree_map
+
+    return tree_map(lambda x: x.clone(), qtree)
+
+
 def phase2(n_layers, tmp, pool, report):
+    """The main path. Returns the state (phase 3 goes on from it) and
+    the kernel launches counted over this phase."""
+    import numpy as np
     import torch
 
     from repro_torch.core import theta_like
-    from repro_torch.core.precodec import _dequantize_leaf, _is_float_leaf
-    from repro_torch.kernels.fused.ops import fused_precodec
-    from repro_torch.kernels.quantize.ops import TILE, quantize, quantize_plain
+    from repro_torch.core.precodec import (
+        _dequantize_leaf,
+        _is_float_leaf,
+        dequantize_tree_reference,
+        quantize_tree,
+    )
+    from repro_torch.kernels.quantize.ops import TILE, quantize_plain
     from repro_torch.kernels.common import pad_to_multiple
 
     t0 = time.perf_counter()
@@ -392,16 +646,17 @@ def phase2(n_layers, tmp, pool, report):
         f"bytes={n_bytes} built_s={time.perf_counter() - t0:.3f}")
     report["state"] = dict(n_layers=n_layers, bytes=n_bytes, leaves=len(leaves(state)))
 
-    fused_precodec.launches = 0
-    quantize.launches = 0
+    reset_counts()
 
     # -- precodec none: anchor, top-4-layer fine-tune, full update --------
     root = tmp / "none"
     mgr = manager(root, theta_like(4, 4))
-    copies, stats = {}, {}
+    copies, stats, pre = {}, {}, {}
     updates = {1: fine_tune_top_layers, 2: update_everything, 3: None}
     for step in (1, 2, 3):
         copies[step] = host_copy(state)
+        pre[step] = device_digests(state)        # pre-D2H integrity, untimed
+        check_host_digests(pre[step], copies[step], f"step {step}")
         mgr.stage(step, state)
         if updates[step] is not None:
             updates[step](state)     # the next train step, in place
@@ -420,9 +675,15 @@ def phase2(n_layers, tmp, pool, report):
     for step in (1, 2, 3):
         tree, secs, rr = restore_step(root, step, state)
         assert_equal_to_host(tree, copies[step], f"step {step}")
+        post = device_digests(tree)
+        if not np.array_equal(post, pre[step]):
+            bad = [n for (n, _), a, b in zip(leaves(tree), post, pre[step]) if (a != b).any()]
+            raise AssertionError(f"step {step}: restored digests differ for {bad}")
         del tree
         rows.append(step_row(stats[step], secs, rr))
         log("phase2 none " + json.dumps(rows[-1]))
+        log(f"phase2 none step {step}: device digests of {len(post)} restored leaves "
+            f"equal their pre-stage digests; {len(HOST_DIGEST_LEAVES)} equal the host digest_ref")
     report["steps_none"] = rows
     del copies
     shutil.rmtree(root)
@@ -440,9 +701,10 @@ def phase2(n_layers, tmp, pool, report):
 
     root = tmp / "int8"
     mgr = manager(root, theta_like(4, 4), precodec="int8")
-    expect, stats = {}, {}
+    expect, qtrees, stats = {}, {}, {}
     for step in (1, 2):
         expect[step] = expected_int8(state)
+        qtrees[step] = clone_raw_leaves(quantize_tree(state))   # kept on the card
         mgr.stage(step, state)
         if step == 1:
             fine_tune_top_layers(state)
@@ -453,23 +715,142 @@ def phase2(n_layers, tmp, pool, report):
     rows = []
     for step in (1, 2):
         tree, secs, rr = restore_step(root, step, state)
-        for (name, got), (_, want) in zip(leaves(tree), expect[step]):
+        spec = dequantize_tree_reference(qtrees.pop(step), tree, device=DEVICE)
+        for (name, got), (_, want), (_, ref) in zip(leaves(tree), expect[step], leaves(spec)):
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"int8 step {step}: leaf {name} differs from dequantize_tree_reference"
+                )
             if isinstance(want, tuple):
                 want = _dequantize_leaf(want[0], want[1], got)
             if not torch.equal(got.cpu(), want):
                 raise AssertionError(f"int8 step {step}: leaf {name} differs")
-        del tree
+        del tree, spec
         rows.append(step_row(stats[step], secs, rr))
         log("phase2 int8 " + json.dumps(rows[-1]))
+        log(f"phase2 int8 step {step}: restore equals dequantize_tree_reference "
+            f"and the plain quantize + host dequantize")
     report["steps_int8"] = rows
     shutil.rmtree(root)
 
-    launches = {"fused_precodec": fused_precodec.launches, "quantize": quantize.launches}
+    launches = read_counts()
     log(f"phase2 launches: {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("fused_precodec", "quantize", "checksum", "dequantize"):
+        if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    return state, launches
+
+
+# -- phase 3 --------------------------------------------------------------
+
+
+def phase3(state, report):
+    """The pre-fusion chain (benchmarks/kernel_bench.py's per-kernel
+    pass) on the main path's words, held equal to the fused pass."""
+    import torch
+
+    from repro_torch.core.precodec import DevicePrecodec
+    from repro_torch.kernels.checksum.ops import checksum_u32
+    from repro_torch.kernels.delta.ops import xor_delta
+    from repro_torch.kernels.fused.ops import fused_precodec
+
+    cw = CHUNK_SIZE // 4
+    pc = DevicePrecodec(chunk_size=CHUNK_SIZE, device=DEVICE)
+    _, prev = pc.assemble(state)
+    fine_tune_top_layers(state)
+    _, cur = pc.assemble(state)
+    pc.close()
+    n = cur.numel()
+    n_chunks = -(-n // cw)
+    sync()
+    at_start = before_gc = None
+    if DEVICE == "cuda":
+        # what phase 2's objects still hold on the card, before and after
+        # a collection of reference cycles
+        before_gc = torch.cuda.memory_allocated()
+        gc.collect()
+        at_start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    # what the chain and the fused pass hold at once: the state, two
+    # streams, the chain's delta and the fused (chunk-padded) delta
+    held = sum(t.numel() * t.element_size() for _, t in leaves(state)) + 12 * n
+    held += 4 * n_chunks * cw
+
+    reset_counts()
+
+    def chain():
+        delta, count = xor_delta(cur, prev)
+        sums = torch.stack([checksum_u32(cur[c * cw : (c + 1) * cw]) for c in range(n_chunks)])
+        nz = torch.zeros(n_chunks * cw, dtype=torch.bool, device=cur.device)
+        nz[:n] = delta != 0
+        dirty = nz.view(n_chunks, cw).sum(dim=1)
+        return delta, count, dirty, sums
+
+    def fused():
+        return fused_precodec(cur, prev, chunk_words=cw)
+
+    def wall(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return time.perf_counter() - t0, out
+
+    chain_s, (delta, count, dirty, sums) = wall(chain)
+    fused_s, (fdelta, meta) = wall(fused)
+    flat = fdelta.view(-1)
+    if not torch.equal(flat[:n], delta) or flat[n:].any():
+        raise AssertionError("phase3: the chain's delta differs from the fused delta")
+    if not torch.equal(meta[:, 0].to(torch.int64), dirty):
+        raise AssertionError("phase3: per-chunk dirty counts differ")
+    if not torch.equal(meta[:, 1:], sums):
+        raise AssertionError("phase3: per-chunk digests differ")
+    if int(count) != int(meta[:, 0].to(torch.int64).sum()):
+        raise AssertionError("phase3: xor count != sum of the fused dirty counts")
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    n_dirty = int((dirty > 0).sum())
+    del delta, count, dirty, sums, fdelta, meta, flat
+    launches = read_counts()
+    # timed again in turns: chain, fused, fused, chain
+    times = {"chain": [chain_s], "fused": [fused_s]}
+    for name in ("chain", "fused", "fused", "chain"):
+        secs, out = wall(chain if name == "chain" else fused)
+        times[name].append(secs)
+        del out
+    report["phase3"] = dict(n_words=n, n_chunks=n_chunks, dirty_chunks=n_dirty,
+                            chain_s=times["chain"], fused_s=times["fused"],
+                            allocated_before_gc_bytes=before_gc,
+                            allocated_at_start_bytes=at_start, peak_device_bytes=peak,
+                            state_streams_deltas_bytes=held, launches=launches)
+    log(f"phase3 chain equals fused: n_words={n} chunks={n_chunks} dirty_chunks={n_dirty} "
+        f"checksum_launches={launches['checksum']}")
+    log(f"phase3 wall_s chain={times['chain']} fused={times['fused']} "
+        f"(first of each checked; then chain, fused, fused, chain)")
+    log(f"phase3 device memory: peak_bytes={peak} allocated_before_gc_bytes={before_gc} "
+        f"allocated_at_start_bytes={at_start} "
+        f"state_two_streams_two_deltas_bytes={held}")
+    for name in ("xor_delta", "checksum", "fused_precodec"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched in phase 3")
+    del prev, cur
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return launches
+
+
+# (name, report key, source, the TPU kernel's body it replaces)
+KERNEL_ROWS = [
+    ("fused_precodec", "fused", "src/repro_torch/kernels/fused/csrc/fused_precodec.cu",
+     "src/repro/kernels/fused/fused.py:36"),
+    ("quantize", "quantize", "src/repro_torch/kernels/quantize/csrc/quantize.cu",
+     "src/repro/kernels/quantize/quantize.py:20"),
+    ("dequantize", "dequantize", "src/repro_torch/kernels/quantize/csrc/dequantize.cu",
+     "src/repro/kernels/quantize/quantize.py:32"),
+    ("checksum", "checksum", "src/repro_torch/kernels/checksum/csrc/checksum.cu",
+     "src/repro/kernels/checksum/checksum.py:24"),
+    ("xor_delta", "xor_delta", "src/repro_torch/kernels/delta/csrc/delta.cu",
+     "src/repro/kernels/delta/delta.py:20"),
+]
 
 
 def main(argv=None):
@@ -505,35 +886,43 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"phase0 ptxas {name}: {line.strip()}")
 
-    phase1_fused(state_words(args.layers), report)
-    phase1_quantize(quantized_values(args.layers), report)
+    n_words, n_quant = state_words(args.layers), quantized_values(args.layers)
+    phase_s = report["phase_s"] = {}
+    t0 = time.perf_counter()
+    phase1_fused(n_words, report)
+    phase1_quantize(n_quant, report)
+    phase1_checksum(n_words, report)
+    phase1_delta(n_words, report)
+    phase1_dequantize(n_quant, report)
+    phase_s["1"] = time.perf_counter() - t0
 
     out_dir = ROOT / "chiprun_out"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
             ThreadPoolExecutor(8) as pool:
-        launches = phase2(args.layers, Path(tmp), pool, report)
+        t0 = time.perf_counter()
+        state, launches2 = phase2(args.layers, Path(tmp), pool, report)
+        phase_s["2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches3 = phase3(state, report)
+        phase_s["3"] = time.perf_counter() - t0
+        del state
+    report["launches"] = {"phase2": launches2, "phase3": launches3}
 
-    kernels = [
-        dict(name="fused_precodec", route="cuda",
-             source="src/repro_torch/kernels/fused/csrc/fused_precodec.cu",
-             replaces="src/repro/kernels/fused/fused.py:36",
-             launches=launches["fused_precodec"],
-             max_abs_err=report["fused"]["max_abs_err"], ms=report["fused"]["ms"],
-             plain_ms=report["fused"]["plain_ms"], bound_ms=report["fused"]["bound_ms"],
-             bound_by=report["fused"]["bound_by"], library_ms=None),
-        dict(name="quantize", route="cuda",
-             source="src/repro_torch/kernels/quantize/csrc/quantize.cu",
-             replaces="src/repro/kernels/quantize/quantize.py:20",
-             launches=launches["quantize"],
-             max_abs_err=report["quantize"]["max_abs_err"], ms=report["quantize"]["ms"],
-             plain_ms=report["quantize"]["plain_ms"], bound_ms=report["quantize"]["bound_ms"],
-             bound_by=report["quantize"]["bound_by"], library_ms=None),
-    ]
+    kernels = []
+    for name, key, source, replaces in KERNEL_ROWS:
+        r = report[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches2[name] + launches3[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+        ))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"total_s={report['total_s']:.1f}")
+    log(f"total_s={report['total_s']:.1f} build_s={report['build_s']:.1f} "
+        + " ".join(f"phase{k}_s={v:.1f}" for k, v in phase_s.items()))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

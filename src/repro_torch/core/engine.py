@@ -147,6 +147,7 @@ from repro_torch.core.storage import (
 )
 from repro_torch.core.strategies import make_plan
 from repro_torch.core.integrity import crc32
+from repro_torch.kernels.common import resolve_device
 from repro_torch.utils.treelib import flatten_with_names, tree_map, unflatten
 
 log = logging.getLogger("repro_torch.ckpt")
@@ -373,12 +374,7 @@ class CheckpointManager:
         priority: float = 1.0,
     ):
         self.cfg = config
-        self.device = torch.device(config.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"CheckpointConfig.device={config.device!r} but no CUDA "
-                "device is available; pass device='cpu' to run on the host"
-            )
+        self.device = resolve_device(config.device)
         self.cluster = config.cluster
         self.root = Path(config.root)
         # Multi-tenant identity (control-plane managed runs): the

@@ -1,9 +1,13 @@
 """Checkpoint integrity: fast host-side checksums.
 
-Host path uses zlib.crc32 (C speed).  On the device, per-chunk digests
-come from the fused pre-codec pass (:mod:`repro_torch.kernels.fused`,
-oracle ``repro_torch.kernels.checksum.ref.digest_ref``); the JAX
-package's whole-stream checksum kernel is not ported yet.
+Host path uses zlib.crc32 (C speed).  The device path — checksumming
+checkpoint shards *before* D2H so corruption in the flush pipeline is
+detectable — is the CUDA kernel in :mod:`repro_torch.kernels.checksum`
+(``digest_array`` of a tensor on the card, whole-stream ``checksum_u32``),
+and per-chunk digests come from the fused pre-codec pass
+(:mod:`repro_torch.kernels.fused`). Both match the oracle
+``repro_torch.kernels.checksum.ref.digest_ref``, not
+:func:`fletcher64_np` below, which works mod 2**32 - 1.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ def crc32(data) -> int:
 
 
 def fletcher64_np(words: np.ndarray) -> int:
-    """Fletcher-64 over uint32 words (the kernel's oracle, vectorized).
+    """Fletcher-64 over uint32 words, vectorized (a host checksum; the
+    device kernels' digest is ``checksum.ref.digest_ref``).
 
     sum1 = (Σ w_i) mod (2^32 - 1);  sum2 = (Σ partial sums) mod (2^32 - 1)
     Equivalently sum2 = Σ (n - i) * w_i.

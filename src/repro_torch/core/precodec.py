@@ -40,14 +40,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.serialize import DTYPES, Buffer, LeafEntry, dtype_name
-from repro_torch.kernels.common import pad_to_multiple
+from repro_torch.kernels.common import pad_to_multiple, resolve_device
 from repro_torch.kernels.fused.ops import (
     CHUNK_ALIGN,
     digests_from_meta,
+    dirty_from_meta,
     fused_precodec,
     meta_to_numpy,
 )
-from repro_torch.kernels.quantize.ops import BLOCK, TILE, quantize, quantize_blocks_needed
+from repro_torch.kernels.quantize.ops import (
+    BLOCK,
+    TILE,
+    dequantize,
+    quantize,
+    quantize_blocks_needed,
+)
 from repro_torch.utils.treelib import flatten_with_names, tree_leaves, tree_map, unflatten
 
 _FLOATS = {"float32", "float64", "bfloat16", "float16"}
@@ -135,7 +142,9 @@ def dequantize_tree(qtree: Any, target: Any, *, pool: Any = None) -> Any:
     tensors.
 
     Vectorized per leaf and — given ``pool`` — parallel across leaves:
-    the block multiplies and casts release the GIL.
+    the block multiplies and casts release the GIL. The per-leaf kernel
+    loop survives as :func:`dequantize_tree_reference`, the executable
+    spec this path is tested bit-identical against.
     """
     named, tdef = flatten_with_names(target)
     tleaves = [leaf for _, leaf in named]
@@ -154,6 +163,31 @@ def dequantize_tree(qtree: Any, target: Any, *, pool: Any = None) -> Any:
         out = list(pool.map(one, jobs))
     else:
         out = [one(j) for j in jobs]
+    return unflatten(tdef, out)
+
+
+def dequantize_tree_reference(qtree: Any, target: Any, *, device: Any = "cuda") -> Any:
+    """Per-leaf kernel restore: one ``dequantize`` launch per quantized
+    leaf on ``device``, then a reshape and a cast to the target leaf's
+    dtype (bf16 and f16 round to nearest even). Leaves that were not
+    quantized come back as they are. Kept as the executable spec for
+    :func:`dequantize_tree`."""
+    dev = resolve_device(device)
+    named, tdef = flatten_with_names(target)
+    tleaves = [leaf for _, leaf in named]
+    qleaves = tree_leaves(qtree, is_leaf=_is_qleaf)
+    if len(tleaves) != len(qleaves):
+        raise ValueError("quantized tree does not match target structure")
+    out = []
+    for t, q in zip(tleaves, qleaves):
+        if isinstance(q, dict):
+            x = dequantize(
+                _as_tensor(q["q"]).to(dev), _as_tensor(q["s"]).to(dev), n=_numel(t)
+            )
+            shape = tuple(getattr(t, "shape", np.shape(t)))
+            out.append(x.reshape(shape).to(DTYPES[dtype_name(t)][0]))
+        else:
+            out.append(q)
     return unflatten(tdef, out)
 
 
@@ -338,6 +372,16 @@ class DevicePrecodec:
 
     # -- staging ------------------------------------------------------------
 
+    def assemble(self, state: Any) -> Tuple[_StreamSpec, torch.Tensor]:
+        """The transformed state as one ``int32`` word stream on the
+        device (the serialized bytes, zero-padded to a whole word),
+        enqueued on the caller's current stream, with its spec."""
+        named, treedef = flatten_with_names(state)
+        spec = self._spec_for(named, treedef)
+        if spec.total == 0:
+            raise ValueError("device precodec requires a non-empty state")
+        return spec, spec.fn([leaf for _, leaf in named])
+
     def stage(
         self, step: int, state: Any, *, base_step: Optional[int] = None
     ) -> StagedPrecodec:
@@ -350,11 +394,7 @@ class DevicePrecodec:
         (otherwise the stage silently becomes a full snapshot and the
         returned buffers carry ``base_step=None``).
         """
-        named, treedef = flatten_with_names(state)
-        spec = self._spec_for(named, treedef)
-        if spec.total == 0:
-            raise ValueError("device precodec requires a non-empty state")
-        words = spec.fn([leaf for _, leaf in named])
+        spec, words = self.assemble(state)
         ready = None
         if self._side is not None:
             ready = torch.cuda.Event()
@@ -391,7 +431,7 @@ class DevicePrecodec:
             digests = digests_from_meta(meta_np)
             n_chunks = len(digests)
             # no base: the XOR against zeros IS the stream; every chunk ships
-            mask = meta_np[:, 0] > 0 if use_base else np.ones(n_chunks, bool)
+            mask = dirty_from_meta(meta_np) if use_base else np.ones(n_chunks, bool)
             dirty_idx = np.flatnonzero(mask)
             sub = (
                 delta

@@ -9,9 +9,10 @@ PyTorch headers), compiled for Hopper into its own shared library:
 The library name carries a hash of the source and the flags, so an edited
 kernel is rebuilt and an unchanged one is loaded from ``build/repro_torch/``
 (listed in ``.gitignore``). ``--use_fast_math`` is never passed: the
-quantizer depends on IEEE division. Nothing is compiled when a module is
-imported; :func:`load` builds on a kernel's first launch and
-:func:`build_all` starts every ``nvcc`` at once. A failed build raises.
+quantizer and dequantizer depend on IEEE division and multiplication.
+Nothing is compiled when a module is imported; :func:`load` builds on a
+kernel's first launch and :func:`build_all` starts every ``nvcc`` at
+once. A failed build raises.
 """
 from __future__ import annotations
 
@@ -43,6 +44,21 @@ KERNELS: Dict[str, tuple] = {
         _PKG / "quantize" / "csrc" / "quantize.cu",
         "quantize_launch",
         [_P, _P, _P, _I, _P],
+    ),
+    "dequantize": (
+        _PKG / "quantize" / "csrc" / "dequantize.cu",
+        "dequantize_launch",
+        [_P, _P, _P, _I, _P],
+    ),
+    "checksum": (
+        _PKG / "checksum" / "csrc" / "checksum.cu",
+        "checksum_launch",
+        [_P, _P, _I, _P],
+    ),
+    "xor_delta": (
+        _PKG / "delta" / "csrc" / "delta.cu",
+        "xor_delta_launch",
+        [_P, _P, _P, _P, _I, _P],
     ),
 }
 

@@ -2,6 +2,7 @@ from repro_torch.kernels.fused.ops import (
     CHUNK_ALIGN,
     TILE,
     digests_from_meta,
+    dirty_from_meta,
     fused_precodec,
     fused_precodec_plain,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "TILE",
     "chunk_digests_ref",
     "digests_from_meta",
+    "dirty_from_meta",
     "fused_precodec",
     "fused_precodec_plain",
     "fused_ref",

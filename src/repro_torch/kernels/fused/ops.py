@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.checksum.ref import IDX_MOD
-from repro_torch.kernels.common import check_operand, on_cpu
+from repro_torch.kernels.common import check_operand, int32_bits, on_cpu, u32_numpy
 
 TILE = 8 * 128            # words per (8, 128) tile of the reference kernel
 CHUNK_ALIGN = TILE * 4    # bytes per tile; chunk_size must be a multiple
@@ -41,11 +41,6 @@ def _check_args(cur: torch.Tensor, base: torch.Tensor, chunk_words: int) -> None
             f"need two equal-length 1-D streams, got {tuple(cur.shape)} "
             f"and {tuple(base.shape)}"
         )
-
-
-def _to_int32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> the int32 with the same 32 bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def fused_precodec_plain(
@@ -85,7 +80,7 @@ def fused_precodec_plain(
             ],
             dim=1,
         )
-        meta[a:b] = _to_int32(rows)
+        meta[a:b] = int32_bits(rows)
     return delta, meta
 
 
@@ -129,10 +124,15 @@ fused_precodec.launches = 0
 
 def meta_to_numpy(meta: torch.Tensor) -> np.ndarray:
     """(n_chunks, 3) int32 meta tensor -> host uint32 array (same bits)."""
-    return meta.cpu().numpy().view(np.uint32)
+    return u32_numpy(meta)
 
 
 def digests_from_meta(meta: np.ndarray) -> np.ndarray:
     """(n_chunks, 3) uint32 meta rows -> (n_chunks,) uint64 digests."""
     m = np.asarray(meta, dtype=np.uint64)
     return (m[:, 2] << np.uint64(32)) | m[:, 1]
+
+
+def dirty_from_meta(meta: np.ndarray) -> np.ndarray:
+    """(n_chunks, 3) uint32 meta rows -> (n_chunks,) bool dirty mask."""
+    return np.asarray(meta)[:, 0] > 0

@@ -11,8 +11,16 @@ import pytest
 import torch
 
 from repro_torch.core import CheckpointConfig, CheckpointManager, theta_like
+from repro_torch.core.precodec import dequantize_tree, dequantize_tree_reference, quantize_tree
+from repro_torch.kernels.checksum.ops import checksum_u32, checksum_u32_plain, digest_array
+from repro_torch.kernels.delta.ops import xor_delta, xor_delta_plain
 from repro_torch.kernels.fused.ops import fused_precodec, fused_precodec_plain
-from repro_torch.kernels.quantize.ops import quantize, quantize_plain
+from repro_torch.kernels.quantize.ops import (
+    dequantize,
+    dequantize_plain,
+    quantize,
+    quantize_plain,
+)
 from repro_torch.utils.treelib import flatten_with_names
 
 pytestmark = pytest.mark.gpu
@@ -56,10 +64,92 @@ def test_quantize_kernel_matches_plain(cuda, dtype):
     assert not q[0].any() and float(s[0]) == 0.0
 
 
+@pytest.mark.parametrize("n", [1, 3, 1025, 100_003, 3 * (1 << 20) + 7])
+def test_checksum_kernel_matches_plain(cuda, n):
+    """Aligned, and three views that start off a 16-byte boundary (the
+    kernel's scalar head); more than 2**20 words wraps the index."""
+    w = _words(n + 3, n)
+    for start in range(4):
+        v = w[start : start + n]
+        assert torch.equal(checksum_u32(v), checksum_u32_plain(v)), start
+    launches = checksum_u32.launches
+    assert not checksum_u32(w[:0]).any() and checksum_u32.launches == launches
+
+
+def test_digest_array_kernel_matches_plain(cuda):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(4099, device="cuda", generator=g) * 100
+    views = {
+        "f32": x, "f32_unaligned": x[1:], "f32_unaligned3": x[3:],
+        "bf16_odd_offset": x.to(torch.bfloat16)[1:], "f16": x.to(torch.float16),
+        "int8_ragged": x.to(torch.int8)[1:], "int64": x.to(torch.int64)[1:],
+        "f64": x.double(), "bool": x > 0, "scalar": x[7],
+    }
+    for name, v in views.items():
+        assert torch.equal(digest_array(v).cpu(), digest_array(v.cpu())), name
+
+
+@pytest.mark.parametrize(
+    "n,frac", [(1, 1.0), (1023, 0.5), (4096, 0.0), (4096, 1.0), (100_003, 0.02)]
+)
+def test_xor_delta_kernel_matches_plain(cuda, n, frac):
+    cur = _words(n, n)
+    prev = cur.clone()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    hit = torch.rand(n, device="cuda", generator=g) < frac
+    prev[hit] ^= 0x1234
+    d, count = xor_delta(cur, prev)
+    rd, rcount = xor_delta_plain(cur, prev)
+    assert torch.equal(d, rd)
+    assert int(count) == int(rcount) == int(hit.sum())
+
+
+def _same_floats(a, b):
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]
+    )
+
+
+@pytest.mark.parametrize("n", [1, 77, 128, 129, 3 * 4096 + 77, 4 * 4096])
+def test_dequantize_kernel_matches_plain(cuda, n):
+    """``n`` cut mid-block, a NaN scale, a zero block, a negative scale."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, s = quantize(torch.randn(4 * 4096, device="cuda", generator=g) * 3)
+    s[1] = float("nan")
+    q[2], s[2] = 0, 0.0
+    s[3] = -s[3]
+    got = dequantize(q, s, n=n)
+    assert got.shape == (n,)
+    assert _same_floats(got, dequantize_plain(q, s, n=n))
+    assert _same_floats(got, (q.float() * s[:, None]).reshape(-1)[:n])
+
+
+def test_dequantize_tree_reference_on_the_card(cuda):
+    rng = np.random.default_rng(1)
+    state = {
+        "w": torch.from_numpy(rng.standard_normal((64, 300)).astype(np.float32)).cuda(),
+        "h": torch.from_numpy(rng.standard_normal((40, 130)).astype(np.float32))
+        .to(torch.bfloat16).cuda(),
+        "small": torch.ones(37, device="cuda"),
+        "i": torch.arange(511, dtype=torch.int32, device="cuda"),
+    }
+    qtree = quantize_tree(state)
+    launches = dequantize.launches
+    ref = dequantize_tree_reference(qtree, state)
+    assert dequantize.launches == launches + 2
+    host = dequantize_tree(qtree, state)    # unquantized leaves pass through
+    for k, t in state.items():
+        assert ref[k].device.type == "cuda" and ref[k].dtype == t.dtype, k
+        assert torch.equal(ref[k].cpu(), host[k].cpu()), k
+
+
 def test_wrappers_refuse_unaligned_input(cuda):
     x = _words(4096 + 1, 1)
     with pytest.raises(ValueError, match="aligned"):
         fused_precodec(x[1:], x[1:], chunk_words=1024)
+    with pytest.raises(ValueError, match="aligned"):
+        xor_delta(x[1:], x[1:])
 
 
 @pytest.mark.parametrize("precodec", ["none", "int8"])

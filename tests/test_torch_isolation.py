@@ -59,11 +59,26 @@ def test_cuda_manager_without_a_gpu_raises(tmp_path):
 def test_cuda_tensor_never_takes_the_plain_path():
     """Without a card the wrappers cannot be handed a CUDA tensor at all;
     on a meta tensor (neither CPU nor CUDA) they raise."""
-    from repro_torch.kernels.fused.ops import fused_precodec
-    from repro_torch.kernels.quantize.ops import quantize
+    from repro_torch.kernels import (
+        checksum_u32,
+        dequantize,
+        digest_array,
+        fused_precodec,
+        quantize,
+        xor_delta,
+    )
 
     x = torch.empty(2048, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_precodec(x, x, chunk_words=1024)
     with pytest.raises(ValueError, match="no kernel for device"):
         quantize(torch.empty(4096, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        checksum_u32(x)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        digest_array(torch.empty(99, dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        xor_delta(x, x)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        dequantize(torch.empty((4, 128), dtype=torch.int8, device="meta"),
+                   torch.empty(4, device="meta"), n=500)

@@ -4,6 +4,7 @@ On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX
 side runs the Pallas kernels in interpret mode. Every comparison is
 exact (tolerance zero): the fused pass is integer arithmetic mod 2**32,
 and the quantizer does each step as one IEEE float32 operation.
+The dequantizer is one IEEE float32 multiply per value.
 The CUDA kernels themselves are checked in tests/test_torch_cuda.py.
 """
 import os
@@ -17,15 +18,19 @@ import torch
 
 from repro.kernels.fused.ops import fused_precodec as jax_fused
 from repro.kernels.fused.ref import fused_ref
+from repro.kernels.quantize import dequantize as jax_dequantize
 from repro.kernels.quantize import quantize as jax_quantize
-from repro.kernels.quantize.ref import quantize_ref
+from repro.kernels.quantize.ref import dequantize_ref, quantize_ref
 from repro_torch.kernels.fused.ref import fused_ref as port_fused_ref
 from repro_torch.kernels.fused.ops import (
     digests_from_meta,
     fused_precodec,
     meta_to_numpy,
 )
-from repro_torch.kernels.quantize.ops import quantize
+from repro_torch.kernels.quantize import ops as quantize_ops
+from repro_torch.kernels.quantize.ops import dequantize, quantize
+from repro_torch.kernels.quantize.ref import dequantize_ref as port_dequantize_ref
+from repro_torch.kernels.quantize.ref import quantize_ref as port_quantize_ref
 from repro_torch.utils.convert import tree_from_numpy
 
 
@@ -183,3 +188,79 @@ def test_reference_divergences():
     jq, _ = jax_quantize(jnp.asarray(tie))
     q, _ = quantize(torch.from_numpy(tie))
     assert rq[0, 9] == 0 and np.asarray(jq)[0, 9] == 1 and int(q[0, 9]) == 1
+
+
+def _same_floats(a, b):
+    """Equal bit for bit, except that any NaN matches any NaN."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    assert a.shape == b.shape
+    nan = np.isnan(a)
+    np.testing.assert_array_equal(nan, np.isnan(b))
+    np.testing.assert_array_equal(a.view(np.int32)[~nan], b.view(np.int32)[~nan])
+
+
+def _dequant_cases():
+    """(q, s, n): codes and scales of whole 4096-value tiles (what the
+    Pallas wrapper takes), at most 64 tiles."""
+    rng = np.random.default_rng(23)
+    q, s = quantize_ref((rng.standard_normal((96, 128)) * 5).astype(np.float32))
+    nan_s = s.copy()
+    nan_s[[3, 40]] = np.nan                 # a NaN scale: that block is NaN
+    neg = s.copy()
+    neg[7] = -neg[7]                        # a negative scale: -0.0 for zero codes
+    zq = q.copy()
+    zq[10:42] = 0                           # zero blocks, with their scales
+    zs = s.copy()
+    zs[10:42] = 0
+    return {
+        "whole": (q, s, 96 * 128),
+        "cut_mid_block": (q, s, 90 * 128 + 77),
+        "cut_first_block": (q, s, 5),
+        "zero_blocks": (zq, zs, 96 * 128 - 1),
+        "nan_scale": (q, nan_s, 96 * 128),
+        "negative_scale": (q, neg, 96 * 128),
+        "many_tiles": (*quantize_ref(rng.standard_normal((64 * 32, 128)).astype(np.float32)),
+                       64 * 4096 - 100),
+    }
+
+
+DEQUANT_CASES = _dequant_cases()
+
+
+@pytest.mark.parametrize("case", sorted(DEQUANT_CASES))
+def test_dequantize_matches_pallas_and_oracle(case):
+    q, s, n = DEQUANT_CASES[case]
+    got = dequantize(torch.from_numpy(q), torch.from_numpy(s), n=n)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    # the oracle first, so that a fault of the JAX path shows as such
+    _same_floats(got.numpy(), dequantize_ref(q, s).reshape(-1)[:n])
+    _same_floats(got.numpy(), port_dequantize_ref(q, s).reshape(-1)[:n])
+    _same_floats(got.numpy(), np.asarray(jax_dequantize(jnp.asarray(q), jnp.asarray(s), n=n)))
+
+
+def test_dequantize_groups(monkeypatch):
+    """The plain version's block groups (cut small here) cover ``n``."""
+    monkeypatch.setattr(quantize_ops, "_PLAIN_GROUP_BLOCKS", 7)
+    q, s, _ = DEQUANT_CASES["whole"]
+    n = 50 * 128 + 3
+    got = dequantize(torch.from_numpy(q), torch.from_numpy(s), n=n)
+    _same_floats(got.numpy(), dequantize_ref(q, s).reshape(-1)[:n])
+
+
+def test_dequantize_rejects_bad_arguments():
+    q = torch.zeros((4, 128), dtype=torch.int8)
+    s = torch.zeros(4)
+    with pytest.raises(ValueError):
+        dequantize(q, s, n=4 * 128 + 1)
+    with pytest.raises(ValueError):
+        dequantize(q, s[:3], n=10)
+    with pytest.raises(TypeError):
+        dequantize(q.float(), s, n=10)
+    assert dequantize(q, s, n=0).shape == (0,)
+
+
+def test_port_quantize_ref_is_the_reference():
+    x = QUANT_CASES["normal_padded"]
+    blocks = np.pad(x, (0, (-len(x)) % 4096)).reshape(-1, 128)
+    for a, b in zip(port_quantize_ref(blocks), quantize_ref(blocks)):
+        np.testing.assert_array_equal(a, b)

@@ -15,12 +15,18 @@ import torch
 
 from repro.core.precodec import DevicePrecodec as JaxPrecodec
 from repro.core.precodec import _is_float_leaf
+from repro.core.precodec import dequantize_tree_reference as jax_dequantize_tree_reference
 from repro.core.serialize import serialize_tree as jax_serialize
 from repro.kernels.fused.ref import chunk_digests_ref
-from repro.kernels.quantize.ref import quantize_ref
-from repro_torch.core.precodec import DevicePrecodec, dequantize_tree, quantize_tree
+from repro.kernels.quantize.ref import dequantize_ref, quantize_ref
+from repro_torch.core.precodec import (
+    DevicePrecodec,
+    dequantize_tree,
+    dequantize_tree_reference,
+    quantize_tree,
+)
 from repro_torch.core.serialize import serialize_tree
-from repro_torch.utils.convert import tree_from_numpy
+from repro_torch.utils.convert import tree_from_numpy, tree_to_numpy
 from test_precodec_device import mixed_state
 
 CHUNK = 4096
@@ -149,3 +155,54 @@ def test_dequantize_tree_inverts_to_target_dtypes():
     x = (rq["w"]["q"].astype(np.float32) * rq["w"]["s"][:, None]).reshape(-1)
     np.testing.assert_array_equal(back["w"].numpy().reshape(-1), x[: back["w"].numel()])
     torch.testing.assert_close(back["i"], state["i"], rtol=0, atol=0)
+
+
+def _dequant_target():
+    rng = np.random.default_rng(9)
+    h = rng.standard_normal((33, 130)).astype(np.float32) * 7
+    return {
+        "a": rng.standard_normal((64, 128)).astype(np.float32),
+        "b": rng.standard_normal(5000).astype(np.float32) * 40,
+        "h": np.asarray(jnp.asarray(h, jnp.bfloat16)),
+        "small": np.float32(3.5),                     # below the quantize floor
+        "ints": np.arange(10, dtype=np.int32),        # not quantized
+    }
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def test_dequantize_tree_reference_matches_host_path_and_jax():
+    """The per-leaf kernel restore is the spec of the host restore, and
+    equals the JAX package's spec on the same codes. Each quantized leaf
+    is also held against dequantize_ref, so that a fault of the JAX path
+    would show as such."""
+    target_np = _dequant_target()
+    target = tree_from_numpy(target_np, "cpu")
+    q = quantize_tree(target)
+    ref = dequantize_tree_reference(q, target, device="cpu")
+    fast = dequantize_tree(q, target)
+    q_np = tree_to_numpy(q)
+    jax_ref = jax_dequantize_tree_reference(q_np, target_np)
+    assert sorted(k for k in q if isinstance(q[k], dict)) == ["a", "b", "h"]
+    for k, t in target.items():
+        assert ref[k].dtype == t.dtype and ref[k].shape == t.shape, k
+        assert torch.equal(ref[k], fast[k]), k
+        got = tree_to_numpy(ref[k])
+        np.testing.assert_array_equal(_bits(got), _bits(jax_ref[k]))
+        if isinstance(q[k], dict):
+            x = dequantize_ref(q_np[k]["q"], q_np[k]["s"]).reshape(-1)[: t.numel()]
+            want = x.reshape(target_np[k].shape).astype(target_np[k].dtype)
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+        else:
+            np.testing.assert_array_equal(got, target_np[k])
+
+
+def test_dequantize_tree_reference_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    target = tree_from_numpy(_dequant_target(), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dequantize_tree_reference(quantize_tree(target), target)
