@@ -1,0 +1,110 @@
+"""Shared neural building blocks on torch tensors.
+
+Counterpart of ``repro/models/layers.py``, dense path: the numerics
+follow the reference op for op (float32 inside the norms, the rotary
+embedding and the SiLU; casts back to the compute dtype where the
+reference casts). The reference's ``_act_ff`` is a sharding pin and a
+no-op without a mesh, so it has no counterpart. ``layer_norm``,
+``gelu_mlp`` and the sinusoidal tables come with the whisper family.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).
+
+    Half-split ("NeoX") rotation in float32, as the reference."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
+    angles = positions[..., None].float() * freqs              # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ w_down.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initializers (all take an explicit generator)
+# ---------------------------------------------------------------------------
+
+
+def _normal(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard normal float32 draws from ``generator`` (on the
+    generator's own device), placed on ``device``."""
+    return torch.randn(
+        shape, generator=generator, dtype=torch.float32, device=generator.device
+    ).to(device)
+
+
+def dense_init(
+    generator: torch.Generator,
+    shape: Tuple[int, ...],
+    dtype: torch.dtype,
+    *,
+    scale: Optional[float] = None,
+    layers: Optional[int] = None,
+    device=None,
+) -> torch.Tensor:
+    """N(0, 1/fan_in) of ``shape`` (fan_in: the product of all but the
+    last dim), or ``scale`` as the std. ``layers`` stacks that many
+    independent draws on a leading axis; the fan-in is that of one."""
+    fan_in = int(np.prod(shape[:-1])) if len(shape) >= 2 else max(1, shape[0])
+    std = scale if scale is not None else (1.0 / np.sqrt(fan_in))
+    full = shape if layers is None else (layers, *shape)
+    return (_normal(generator, full, device) * std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype, *, device=None) -> torch.Tensor:
+    return (_normal(generator, shape, device) * 0.02).to(dtype)
+
+
+def causal_mask(s_q: int, s_k: int, *, q_offset: int = 0, device=None) -> torch.Tensor:
+    """(s_q, s_k) boolean mask; True = attend."""
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    ki = torch.arange(s_k, device=device)[None, :]
+    return ki <= qi
+
+
+def window_mask(
+    s_q: int, s_k: int, window: int, *, q_offset: int = 0, device=None
+) -> torch.Tensor:
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    ki = torch.arange(s_k, device=device)[None, :]
+    return (ki <= qi) & (ki > qi - window)

@@ -8,6 +8,11 @@ bfloat16 of its own, so bf16 moves through a 16-bit storage view: the
 NumPy side names it ``bfloat16`` (the dtype that ``ml_dtypes``
 registers), the torch side ``torch.bfloat16``. Structure and leaf order
 are kept (see :mod:`repro_torch.utils.treelib`).
+
+:func:`params_from_numpy` and :func:`train_state_from_numpy` load a JAX
+parameter or train-state tree into the port's model module and
+optimizer state; :func:`copy_tree_` loads any tree into another in
+place (a restore into a live train state).
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.utils.treelib import tree_map
+from repro_torch.utils.treelib import flatten_with_names, tree_map
 
 
 def _numpy_bfloat16() -> np.dtype:
@@ -56,3 +61,56 @@ def tree_to_numpy(tree: Any) -> Any:
     """Every torch tensor leaf of ``tree`` as a host NumPy array with
     the same dtype, shape and bytes."""
     return tree_map(_to_numpy, tree)
+
+
+@torch.no_grad()
+def copy_tree_(dst: Any, src: Any) -> Any:
+    """Copy every leaf of ``src`` (tensors or NumPy arrays) into the
+    leaf of ``dst`` with the same name, in place; returns ``dst``.
+    Names, shapes and dtypes must agree."""
+    dn, sn = flatten_with_names(dst)[0], flatten_with_names(src)[0]
+    if [n for n, _ in dn] != [n for n, _ in sn]:
+        raise ValueError("trees differ in structure")
+    for (name, d), (_, s) in zip(dn, sn):
+        if not isinstance(s, torch.Tensor):
+            s = _from_numpy(s, torch.device("cpu"))
+        if d.dtype != s.dtype or tuple(d.shape) != tuple(s.shape):
+            raise ValueError(
+                f"leaf {name}: {s.dtype}{tuple(s.shape)} into {d.dtype}{tuple(d.shape)}"
+            )
+        d.copy_(s)
+    return dst
+
+
+def params_from_numpy(tree: Any, model_or_cfg: Any, device: Any = "cuda") -> Any:
+    """A JAX parameter tree (NumPy leaves) as the port's model module.
+
+    ``model_or_cfg`` is a ``Transformer`` (loaded in place and returned),
+    a ``Model`` or a ``ModelConfig`` (a new module is made on ``device``)."""
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.models.transformer import Transformer
+
+    if isinstance(model_or_cfg, Transformer):
+        module = model_or_cfg
+    else:
+        cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
+        module = Transformer(cfg, device=resolve_device(device))
+    copy_tree_(module.state_tree(), tree)
+    return module
+
+
+def train_state_from_numpy(tree: Any, model_or_cfg: Any, device: Any = "cuda") -> Any:
+    """A JAX train state ``{"params", "opt": {"mu", "nu", "count"},
+    "step"}`` (NumPy leaves) as the port's train state: ``params`` are a
+    model module's own parameters, the rest tensors on the same device."""
+    module = params_from_numpy(tree["params"], model_or_cfg, device)
+    dev = module.embed.device
+    return {
+        "params": module.state_tree(),
+        "opt": {
+            "mu": tree_from_numpy(tree["opt"]["mu"], dev),
+            "nu": tree_from_numpy(tree["opt"]["nu"], dev),
+            "count": _from_numpy(tree["opt"]["count"], dev),
+        },
+        "step": _from_numpy(tree["step"], dev),
+    }

@@ -6,6 +6,12 @@ one; on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 """
+import os
+
+# cuBLAS reads this when it makes its handle; the bit-equality of two
+# train runs needs its fixed workspace
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import numpy as np
 import pytest
 import torch
@@ -184,3 +190,67 @@ def test_device_round_trip(cuda, tmp_path, precodec):
             if precodec == "none" or t.dtype not in (torch.float32, torch.bfloat16):
                 assert torch.equal(t.cpu(), copies[step][n]), n
     mgr.close()
+
+
+def _smoke(compute="float32"):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.train import OptConfig, TrainConfig
+
+    cfg = get_smoke_config("qwen1.5-0.5b").replace(compute_dtype=compute)
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-2, warmup_steps=2, total_steps=10))
+    return cfg, get_model(cfg), tcfg
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One step of qwen's smoke config (float32) from the same state on
+    the same batch: metrics to 1e-5; each parameter's AdamW direction to
+    0.1 lr and each leaf's update to 1e-3 of its norm (the tolerances of
+    tests/test_torch_train.py, for the same reason); mu and nu to 1e-4
+    of their largest element."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.utils.convert import train_state_from_numpy, tree_to_numpy
+
+    cfg, model, tcfg = _smoke()
+    start = tree_to_numpy(init_train_state(model, torch.Generator().manual_seed(0), tcfg, "cpu"))
+    batch = SyntheticTokens(DataConfig(vocab_size=256, seq_len=64, global_batch=4),
+                            device="cpu").next()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = train_state_from_numpy(start, model, dev)
+        state, m = build_train_step(model, tcfg)(state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (tree_to_numpy(state), {k: float(v) for k, v in m.items()})
+    (c, cm), (g, gm) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm", "lr"):
+        assert gm[k] == pytest.approx(cm[k], rel=1e-5), k
+    lr = cm["lr"]
+    for (n, x), (_, y), (_, p0) in zip(flatten_with_names(g["params"])[0],
+                                      flatten_with_names(c["params"])[0],
+                                      flatten_with_names(start["params"])[0]):
+        np.testing.assert_allclose(x, y, rtol=0, atol=0.1 * lr, err_msg=n)
+        du, dc = x.astype(np.float64) - p0, y.astype(np.float64) - p0
+        assert np.linalg.norm(du - dc) <= 1e-3 * np.linalg.norm(dc), n
+    for group in ("mu", "nu"):
+        for (n, x), (_, y) in zip(flatten_with_names(g["opt"][group])[0],
+                                  flatten_with_names(c["opt"][group])[0]):
+            np.testing.assert_allclose(x, y, rtol=0, atol=1e-4 * np.abs(y).max(), err_msg=n)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_train_runs_on_the_card_are_bit_equal(cuda, compute):
+    """Two runs of three steps under deterministic algorithms give the
+    same bits (the bf16 case includes the embedding gather's bf16
+    scatter-add in backward)."""
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import run
+    from repro_torch.utils.convert import tree_to_numpy
+
+    cfg, _, tcfg = _smoke(compute)
+    data_cfg = DataConfig(vocab_size=256, seq_len=64, global_batch=4)
+    a, b = (run(cfg, data_cfg, tcfg, None, steps=3, ckpt_every=0, device="cuda", log=lambda _: None)
+            for _ in range(2))
+    assert a.losses == b.losses
+    for (n, x), (_, y) in zip(flatten_with_names(tree_to_numpy(a.state))[0],
+                              flatten_with_names(tree_to_numpy(b.state))[0]):
+        assert x.tobytes() == y.tobytes(), n
