@@ -54,6 +54,25 @@ step from the same state on the same batch: loss, grad_norm, each
 leaf's mu and update norm must agree within ``REF_STEP_TOL``.
 ``--layers`` never cuts phase 4.
 
+Phase 5 serves the trainer's checkpoints (``repro_torch.serve``): phase
+4's run A flushed steps 2 (anchor) and 4 (delta) to the PFS. First the
+serving path at full widths cut to two layers (prefill of 2 x 2048
+tokens, 16 greedy decode steps) runs on the card and through the port's
+CPU, teacher-forced on the card's tokens, within ``SERVE_REF_TOL``. Then
+a serving manager on another geometry (2x1) cold-starts a two-replica
+``ServeFleet`` from step 2 at full depth (every replica byte- and
+digest-equal to a full restore of step 2), both replicas generate the
+same 64 greedy tokens for 8 prompts of 2048 tokens, the follower
+hot-swaps the fleet onto step 4 while a client generates in a loop (no
+generate dropped or torn, versions never going back, the served digests
+equal run A's step-4 params), and a serving snapshot (params, KV cache,
+next token) saved with the device pre-codec after 32 tokens restores
+from the PFS into a fresh server that emits the other 32 tokens
+identically. It prints the cold start's times, bytes, cache hits and
+reader balance, prefill and decode times, tokens/s, swap_s, the
+snapshot's stage, window, flush and restore times, and peak device
+memory. ``--layers`` never cuts phase 5.
+
 Prints the card's name and power limit, per-step numbers, one JSON line
 of kernels, and last ``{"ok": true, "device": {...}}``. Exits non-zero
 (with no result) without a CUDA device, outside the repository, or when
@@ -876,35 +895,39 @@ KERNEL_CLASSES = [
 
 
 def profile_train_step(cfg, tcfg, state, data):
-    """One more train step on ``state`` under ``torch.profiler``, tracing
-    the device's activity only (no host-side op records): the device time
-    of each kernel and of each class of ``KERNEL_CLASSES``, and the
-    kernels' union over the step's span (busy share), with the profiled
-    step's wall time to hold against a clean step's. Without device
-    events in the trace, nothing is measured."""
-    import re
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One more train step on ``state`` under :func:`profile_device`."""
     from repro_torch.models import get_model
     from repro_torch.train import build_train_step
 
     step = build_train_step(get_model(cfg), tcfg)
     batch = data.next()
+    return profile_device(lambda: step(state, batch), "phase4", "one clean step")
+
+
+def profile_device(fn, tag, what):
+    """``fn()`` once under ``torch.profiler``, tracing the device's
+    activity only (no host-side op records): the device time of each
+    kernel and of each class of ``KERNEL_CLASSES``, and the kernels'
+    union over the span (busy share), with the profiled call's wall time
+    to hold against a clean call's. Without device events in the trace,
+    nothing is measured."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     acts = [ProfilerActivity.CUDA] if DEVICE == "cuda" else [ProfilerActivity.CPU]
     sync()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(state, batch)
+        fn()
         sync()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     out = {"wall_s": wall, "n_kernels": len(spans)}
     if not spans:
-        log(f"phase4 profile: wall_s={wall:.4f}; no device events in the trace (not measured)")
+        log(f"{tag} profile: wall_s={wall:.4f}; no device events in the trace (not measured)")
         return out
     busy, end = 0.0, spans[0][0]
     totals = {}
@@ -921,12 +944,12 @@ def profile_train_step(cfg, tcfg, state, data):
     top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:12]
     out.update(device_span_ms=span / 1e3, busy_ms=busy / 1e3, busy_share=busy / span,
                class_ms=classes, top=[(n, t / 1e3, c) for n, (t, c) in top])
-    log(f"phase4 profile (one clean step, device trace on): wall_s={wall:.4f} kernels={len(spans)} "
+    log(f"{tag} profile ({what}, device trace on): wall_s={wall:.4f} kernels={len(spans)} "
         f"device_span_ms={span / 1e3:.3f} busy_ms={busy / 1e3:.3f} busy_share={busy / span:.4f}")
-    log("phase4 profile kernel classes ms: "
+    log(f"{tag} profile kernel classes ms: "
         + " ".join(f"{c}={t:.3f}" for c, t in sorted(classes.items(), key=lambda kv: -kv[1])))
     for name, t, c in out["top"]:
-        log(f"phase4 profile kernel ms={t:.3f} launches={c} {name[:110]}")
+        log(f"{tag} profile kernel ms={t:.3f} launches={c} {name[:110]}")
     return out
 
 
@@ -1014,7 +1037,8 @@ def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
     A's byte for byte, and so must step 4 restored from the PFS. Before
     run A, one step at the same widths and sequence length (two layers)
     is held against the port's CPU step. Returns the kernel launches
-    counted over both runs."""
+    counted over both runs, and the device digests of run A's step-4
+    params (phase 5 holds the served params to them)."""
     import numpy as np
     import torch
 
@@ -1062,6 +1086,7 @@ def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
         raise AssertionError("phase4: fused_precodec was not launched on the trainer's saves")
     copy = host_copy(a.state)
     digests = device_digests(a.state)
+    params_digests = digests[[n.startswith("['params']") for n, _ in leaves(a.state)]]
     cursor = int(a.data.state_tree()["batch_idx"])
     target = {"train": a.state, "data": a.data.state_tree()}
 
@@ -1140,6 +1165,341 @@ def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
             f"{profile['device_span_ms']:.3f} ms ({profile['busy_share']:.4f}) "
             f"[{report.get('card')}]")
     log(f"phase4 launches: {launches}")
+    return launches, params_digests
+
+
+# -- phase 5 --------------------------------------------------------------
+
+# the serving path at the main path's widths on the card against the
+# port's CPU (bf16 compute, two layers): each matmul output, the
+# embedding cast and the cache are rounded to 8 bits of mantissa
+# (2^-8 relative) in another order on each side. Logits of each step
+# within 4 such roundings of the step's largest logit (the tolerance of
+# tests/test_torch_models.py::test_bf16_compute_matches_reference); the
+# cache's k and v within 2 of them in norm, relative. A wrong position,
+# mask or cache write is off by far more.
+SERVE_REF_TOL = {"logits": 4 * 2.0 ** -8, "cache": 2 * 2.0 ** -8}
+# the node-local decoded-chunk cache of phase 5's fleet: step 2's and
+# step 4's decoded params chunks (2 x 2.48 GB), so the cold start's second
+# replica and the swap onto step 4 (a delta on step 2) can hit it
+SERVE_CACHE_BYTES = 6 << 30
+SWAP_DEADLINE_S = 300.0
+
+
+def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16):
+    """Prefill of ``batch`` x ``prompt`` tokens then ``steps`` greedy
+    decode steps of ``cfg`` at its full widths, depth cut to
+    ``n_layers``, from one set of weights (from a seed), on the card and
+    through the port's CPU, the CPU teacher-forced on the card's tokens:
+    every step's logits and the cache after prefill and at the end within
+    ``SERVE_REF_TOL``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.utils.convert import tree_from_numpy, tree_to_numpy
+
+    cfg = cfg.replace(n_layers=n_layers)
+    model = get_model(cfg)
+    host = tree_to_numpy(model.init(torch.Generator().manual_seed(SEED), "cpu").state_tree())
+    prompt_np = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, prompt))
+    forced = None
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        params = tree_from_numpy(host, dev)
+        sync()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            tokens = torch.as_tensor(prompt_np.astype(np.int32), device=dev)
+            cache, lg = model.prefill(params, {"tokens": tokens}, s_max=prompt + steps)
+            logits, caches, toks = [lg.float().cpu()], [[x.float().cpu() for x in cache[:2]]], []
+            for i in range(steps):
+                tok = lg.argmax(-1)[:, None].to(torch.int32) if forced is None else \
+                    forced[i].to(dev)
+                toks.append(tok.cpu())
+                lg, cache = model.decode_step(params, cache, tok)
+                logits.append(lg.float().cpu())
+            caches.append([x.float().cpu() for x in cache[:2]])
+        sync()
+        out[dev] = (logits, caches, time.perf_counter() - t0)
+        forced = toks       # the CPU decodes the card's tokens
+        del params, cache
+    (g_logits, g_caches, g_s), (c_logits, c_caches, c_s) = out[DEVICE], out["cpu"]
+    logit_err = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_logits, c_logits)]
+    cache_err = [float((a - b).norm() / b.norm())
+                 for ga, ca in zip(g_caches, c_caches) for a, b in zip(ga, ca)]
+    row = dict(n_layers=n_layers, batch=batch, prompt=prompt, steps=steps, card_s=g_s,
+               cpu_s=c_s, logits_err=logit_err, cache_err=cache_err, tol=SERVE_REF_TOL)
+    report["phase5_reference"] = row
+    log(f"phase5 reference ({cfg.name} widths, {n_layers} layers, batch {batch}x{prompt}, "
+        f"{steps} decode steps teacher-forced): card {g_s:.3f} s, cpu {c_s:.3f} s; "
+        f"worst logits err {max(logit_err):.3e} of max|logit| (tol {SERVE_REF_TOL['logits']:g}), "
+        f"worst cache err {max(cache_err):.3e} relative (tol {SERVE_REF_TOL['cache']:g})")
+    if max(logit_err) > SERVE_REF_TOL["logits"] or max(cache_err) > SERVE_REF_TOL["cache"]:
+        raise AssertionError(f"phase5: the card's serving differs from the CPU's: "
+                             f"logits {logit_err}, cache {cache_err}")
+    return row
+
+
+def meta_train_target(cfg):
+    """The structure of the trainer's checkpoint (train state + data
+    cursor) on the meta device: a restore reads names, not values."""
+    import torch
+
+    from repro_torch.models.transformer import Transformer
+
+    def params():
+        return Transformer(cfg, device="meta").state_tree()
+
+    def zero():
+        return torch.zeros((), dtype=torch.int32, device="meta")
+
+    return {"train": {"params": params(), "opt": {"mu": params(), "nu": params(),
+                                                  "count": zero()}, "step": zero()},
+            "data": {"batch_idx": zero()}}
+
+
+def cuda_ms(fn, reps=5):
+    """Mean device time of ``fn`` by CUDA events (after one warm-up);
+    None without a card."""
+    if DEVICE != "cuda":
+        return None
+    return time_ms(fn, reps=reps, warmup=1)
+
+
+def phase5(tmp, report, step4_digests, *, model_cfg=None, batch=8, prompt=2048, new=64,
+           ref_kw=None):
+    """Serving the trainer's checkpoints: phase 4's run A flushed steps 2
+    (anchor) and 4 (delta) to the PFS under ``tmp / "train"``. A serving
+    manager on another geometry cold-starts a two-replica ``ServeFleet``
+    from step 2 (every replica byte- and digest-equal to a full restore
+    of step 2), both replicas generate the same greedy tokens, the
+    follower hot-swaps onto step 4 under a client's generates (none
+    dropped or torn; the served digests equal run A's step-4 params'),
+    and a serving snapshot saved with the device pre-codec mid-generation
+    resumes in a fresh server with the same tokens. Returns the kernel
+    launches counted over the phase."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import theta_like
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import DecodeCache, Transformer
+    from repro_torch.serve import FleetConfig, ServeConfig, ServeFleet, Server
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or get_config("qwen1.5-0.5b")
+    model = get_model(cfg)
+    ref = phase5_reference(cfg, report, **(ref_kw or {}))
+    gc.collect()
+    reset_counts()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    root = tmp / "train"
+    prefix = "['train']['params']"
+    scfg = ServeConfig(max_new_tokens=new, s_max=prompt + new)
+    row = dict(model=cfg.name, n_layers=cfg.n_layers, batch=batch, prompt=prompt, new=new,
+               reference_err=dict(logits=max(ref["logits_err"]), cache=max(ref["cache_err"])))
+
+    # -- cold start: two replicas from step 2, on a 2x1 serving geometry --
+    mgr = manager(root, theta_like(2, 1))
+    fleet = ServeFleet(model, mgr, Transformer(cfg, device="meta").state_tree(), prefix=prefix,
+                       cfg=FleetConfig(n_servers=2, serve=scfg, cache_bytes=SERVE_CACHE_BYTES))
+    cs = fleet.cold_start(step=2)
+    sync()
+    bal = fleet.reader_balance()
+    row["cold_start"] = dict(step=cs.step, total_s=cs.total_s, ttft_s=cs.ttft_s,
+                             total_bytes=cs.total_bytes, cache=cs.cache,
+                             bytes_per_reader=bal["bytes_per_reader"].tolist())
+    log(f"phase5 cold start step {cs.step}: total_s={cs.total_s:.3f} ttft_s={cs.ttft_s} "
+        f"bytes={cs.total_bytes} cache hits={cs.cache['hits']} "
+        f"bytes_saved={cs.cache['bytes_saved']} reader_balance={bal['bytes_per_reader'].tolist()} "
+        f"({bal['n_readers']} readers) [{report.get('card')}]")
+    if cs.step != 2:
+        raise AssertionError(f"phase5: cold start pinned step {cs.step}, not 2")
+    full, full_s, _ = restore_step(root, 2, meta_train_target(cfg))
+    want = leaves(full["train"]["params"])
+    want_digests = device_digests(full["train"]["params"])
+    for i, srv in enumerate(fleet.servers):
+        got = leaves(srv.params)
+        if [n for n, _ in got] != [n for n, _ in want]:
+            raise AssertionError(f"phase5: replica {i} has other leaves")
+        for (n, x), (_, y) in zip(got, want):
+            if x.device.type != DEVICE or x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"phase5: replica {i} leaf {n} differs from the full "
+                                     f"restore of step 2 (or is off the card)")
+        if not np.array_equal(device_digests(srv.params), want_digests):
+            raise AssertionError(f"phase5: replica {i}'s digests differ from step 2's")
+    del full, want
+    log(f"phase5 both replicas equal the params of a full restore of step 2 byte for byte "
+        f"and digest for digest (full restore {full_s:.3f} s)")
+
+    # -- generate: both replicas, the same greedy tokens -----------------
+    prompts = {"tokens": np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)}
+    toks, gen_s = [], []
+    for srv in fleet.servers:
+        sync()
+        t0 = time.perf_counter()
+        out, cache = srv.generate(prompts)
+        sync()
+        gen_s.append(time.perf_counter() - t0)
+        toks.append(out)
+        if cache.k.device.type != DEVICE or cache.k.dtype != cfg.cdt:
+            raise AssertionError(f"phase5: cache {cache.k.dtype} on {cache.k.device}")
+    if not np.array_equal(toks[0], toks[1]):
+        raise AssertionError("phase5: the replicas generated different tokens")
+    srv = fleet.servers[0]
+    with torch.inference_mode():
+        dev_prompt = torch.as_tensor(prompts["tokens"], device=DEVICE)
+        sync()
+        t0 = time.perf_counter()
+        pcache, plg = model.prefill(srv.params, {"tokens": dev_prompt}, s_max=prompt + new)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        ptok = plg.argmax(-1)[:, None].to(torch.int32)
+        decode_profile = profile_device(lambda: model.decode_step(srv.params, pcache, ptok),
+                                        "phase5", "one decode step")
+        cast_ms = cuda_ms(lambda: [x.to(cfg.cdt) for _, x in leaves(srv.params)])
+        clone_ms = cuda_ms(lambda: (cache.k.clone(), cache.v.clone()))
+    del cache, pcache
+    gen = gen_s[1]
+    decode_ms = 1e3 * (gen - prefill_s) / new
+    row["generate"] = dict(generate_s=gen_s, prefill_ms=1e3 * prefill_s,
+                           decode_ms_per_token=decode_ms, tokens_per_s=batch * new / gen,
+                           param_casts_ms=cast_ms, cache_clone_ms=clone_ms,
+                           cast_bytes=sum(x.numel() * 6 for _, x in leaves(srv.params)),
+                           decode_profile=decode_profile)
+    log(f"phase5 generate batch {batch}x{prompt} +{new} tokens: both replicas equal; "
+        f"generate_s={gen_s} prefill_ms={1e3 * prefill_s:.3f} "
+        f"decode_ms_per_token={decode_ms:.3f} (generate minus prefill, over {new}) "
+        f"tokens_per_s={batch * new / gen:.1f}; per token: param casts {cast_ms} ms "
+        f"({row['generate']['cast_bytes']} bytes), cache clone {clone_ms} ms "
+        f"[{report.get('card')}]")
+    if "busy_share" in decode_profile:
+        log(f"phase5 profiled decode step wall {decode_profile['wall_s'] * 1e3:.3f} ms against "
+            f"{decode_ms:.3f} ms a token in generate; device busy "
+            f"{decode_profile['busy_ms']:.3f} of {decode_profile['device_span_ms']:.3f} ms "
+            f"({decode_profile['busy_share']:.4f}) in {decode_profile['n_kernels']} kernels "
+            f"[{report.get('card')}]")
+
+    # -- hot swap: the follower adopts step 4 under a client's generates --
+    results, errors = [], []
+    stop = threading.Event()
+
+    def client():
+        while not stop.is_set():
+            try:
+                out, _, v = srv.generate(prompts, with_version=True)
+                results.append((v, out))
+            except BaseException as e:  # surfaced below
+                errors.append(e)
+                return
+
+    th = threading.Thread(target=client, name="phase5-client")
+    th.start()
+    t0 = time.perf_counter()
+    fleet.start_follower()
+    while fleet.current_step != 4 and time.perf_counter() - t0 < SWAP_DEADLINE_S:
+        time.sleep(0.05)
+    adopt_s = time.perf_counter() - t0
+    while not errors and not any(v == 1 for v, _ in list(results)) \
+            and time.perf_counter() - t0 < SWAP_DEADLINE_S:
+        time.sleep(0.05)
+    stop.set()
+    th.join(timeout=SWAP_DEADLINE_S)
+    fleet.stop()
+    if th.is_alive() or errors:
+        raise AssertionError(f"phase5: the client failed or hung: {errors}")
+    versions = [v for v, _ in results]
+    if fleet.current_step != 4 or 1 not in versions or versions != sorted(versions) \
+            or set(versions) - {0, 1}:
+        raise AssertionError(f"phase5 hot swap: step {fleet.current_step}, versions {versions}")
+    for v, out in results:
+        if v == 0 and not np.array_equal(out, toks[0]):
+            raise AssertionError("phase5: a version-0 generate during the swap changed tokens")
+    v1 = [out for v, out in results if v == 1]
+    if any(not np.array_equal(out, v1[0]) for out in v1):
+        raise AssertionError("phase5: version-1 generates disagree")
+    for i, s in enumerate(fleet.servers):
+        if s.params_version != 1 or not np.array_equal(device_digests(s.params), step4_digests):
+            raise AssertionError(f"phase5: replica {i} does not serve run A's step-4 params")
+    swap_s = fleet.swap_history[-1][1]
+    row["hot_swap"] = dict(adopt_s=adopt_s, swap_s=swap_s, generates=len(versions),
+                           versions=versions, cache=fleet.cache.stats())
+    log(f"phase5 hot swap: follower adopted step 4 after {adopt_s:.3f} s (swap_s={swap_s:.3f}); "
+        f"{len(versions)} generates completed, versions {versions}; served digests equal run "
+        f"A's step-4 params [{report.get('card')}]")
+
+    # -- snapshot resume: 32 tokens, snapshot, restore, 32 more ----------
+    half = new // 2
+    uninterrupted = v1[0]
+    with torch.inference_mode():
+        cache, lg = model.prefill(srv.params, {"tokens": dev_prompt}, s_max=prompt + new)
+        tok = lg.argmax(-1)[:, None].to(torch.int32)
+        first = []
+        for _ in range(half):
+            first.append(tok[:, 0])
+            lg, cache = model.decode_step(srv.params, cache, tok)
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+    if not np.array_equal(torch.stack(first, 1).cpu().numpy(), uninterrupted[:, :half]):
+        raise AssertionError("phase5: the decode loop differs from Server.generate")
+    snap_root = tmp / "serve_snapshot"
+    smgr = manager(snap_root, theta_like(4, 4))
+    before = read_counts()["fused_precodec"]
+    st = smgr.save(1, srv.snapshot_state(cache) | {"tok": tok})
+    smgr.wait()
+    if smgr.flush_errors or read_counts()["fused_precodec"] == before:
+        raise AssertionError(f"phase5 snapshot: flush errors {smgr.flush_errors} or no "
+                             f"fused_precodec launch")
+    smgr.close()
+    del cache, tok
+    target = {"params": Transformer(cfg, device="meta").state_tree(),
+              "cache": model.cache_struct(batch, prompt + new),
+              "tok": torch.empty((batch, 1), dtype=torch.int32, device="meta")}
+    rmgr = drop_l1(manager(snap_root, theta_like(2, 1)))
+    t0 = time.perf_counter()
+    _, got = rmgr.restore(target)
+    sync()
+    restore_s = time.perf_counter() - t0
+    rmgr.close()
+    if not isinstance(got["cache"], DecodeCache) or got["cache"].k.device.type != DEVICE:
+        raise AssertionError("phase5: the restored cache is not a DecodeCache on the card")
+    fresh = Server(model, got["params"], scfg)
+    cache, tok, rest = got["cache"], got["tok"], []
+    with torch.inference_mode():
+        for _ in range(new - half):
+            rest.append(tok[:, 0])
+            lg, cache = model.decode_step(fresh.params, cache, tok)
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+    if not np.array_equal(torch.stack(rest, 1).cpu().numpy(), uninterrupted[:, half:]):
+        raise AssertionError("phase5: the resumed server emitted other tokens")
+    fl = st.flush
+    row["snapshot"] = dict(stage_s=st.stage_s, window_s=st.encode_time + st.local_time,
+                           flush_s=fl.duration if fl else None, restore_s=restore_s,
+                           raw_bytes=st.raw_bytes, stored_bytes=st.stored_bytes)
+    log(f"phase5 snapshot after {half} tokens ({st.raw_bytes} bytes): "
+        f"stage_s={st.stage_s:.4f} window_s={st.encode_time + st.local_time:.4f} "
+        f"flush_s={row['snapshot']['flush_s']} restore_s={restore_s:.3f}; the fresh server "
+        f"emits the other {new - half} tokens identically [{report.get('card')}]")
+    del got, cache, fresh
+    fleet.close()
+    mgr.close()
+
+    launches = read_counts()
+    row["launches"] = launches
+    row["peak_device_bytes"] = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    row["wall_s"] = time.perf_counter() - t_phase
+    report["phase5"] = row
+    log(f"phase5 peak_device_bytes={row['peak_device_bytes']} wall {row['wall_s']:.1f} s "
+        f"[{report.get('card')}]; launches: {launches}")
+    for name in ("fused_precodec", "checksum"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase5: {name} was not launched on the serving path")
     return launches
 
 
@@ -1162,7 +1522,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=N_LAYERS,
                     help="depth of phase 2's model state (widths are never cut; "
-                         "phase 4 always trains the full depth)")
+                         "phases 4 and 5 always run the full depth)")
     args = ap.parse_args(argv)
 
     # cuBLAS reads this when it makes its handle; phase 4's bit-exact
@@ -1218,16 +1578,20 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        launches4 = phase4(Path(tmp), report)
+        launches4, step4_digests = phase4(Path(tmp), report)
         phase_s["4"] = time.perf_counter() - t0
-    report["launches"] = {"phase2": launches2, "phase3": launches3, "phase4": launches4}
+        t0 = time.perf_counter()
+        launches5 = phase5(Path(tmp), report, step4_digests)
+        phase_s["5"] = time.perf_counter() - t0
+    launches = [launches2, launches3, launches4, launches5]
+    report["launches"] = {f"phase{i}": n for i, n in enumerate(launches, start=2)}
 
     kernels = []
     for name, key, source, replaces in KERNEL_ROWS:
         r = report[key]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches2[name] + launches3[name] + launches4[name],
+            launches=sum(n[name] for n in launches),
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms"),

@@ -5,14 +5,18 @@ the decoder-only transformer (``dense``; ``moe`` and ``vlm`` raise in
 the model until ROADMAP Queue 1 item 7) are ported; the recurrent,
 hybrid and audio families raise. ``init`` returns the
 :class:`~repro_torch.models.transformer.Transformer` module, whose
-``state_tree()`` is the parameter tree that ``loss`` and ``forward``
-take, as the reference's ``init`` returns its tree.
+``state_tree()`` is the parameter tree that ``loss``, ``forward``,
+``prefill`` and ``decode_step`` take, as the reference's ``init``
+returns its tree. A cache is a
+:class:`~repro_torch.models.transformer.DecodeCache`; ``cache_struct``
+gives one on the meta device (shapes and dtypes, no memory) where the
+reference gives ``ShapeDtypeStruct`` leaves.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -73,6 +77,25 @@ class Model:
             params, self.cfg, batch["tokens"], remat=remat,
             **_extra_kwargs(self.cfg, batch),
         )
+
+    # -- serving --------------------------------------------------------------
+    def prefill(self, params, batch: Dict[str, Any], *, s_max: Optional[int] = None):
+        return self.mod.prefill(
+            params, self.cfg, batch["tokens"], s_max=s_max,
+            **_extra_kwargs(self.cfg, batch),
+        )
+
+    def decode_step(self, params, cache, tokens):
+        return self.mod.decode_step(params, self.cfg, cache, tokens)
+
+    def cache_struct(self, b: int, s_max: int) -> transformer.DecodeCache:
+        _family_module(self.cfg)
+        return transformer.init_cache(self.cfg, b, s_max, device="meta")
+
+    def init_cache(self, params, b: int, s_max: int) -> transformer.DecodeCache:
+        """A zero cache on the device of ``params``' embedding."""
+        _family_module(self.cfg)
+        return transformer.init_cache(self.cfg, b, s_max, device=params["embed"].device)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -8,12 +8,17 @@ is not used: its numerics are not the reference's. The query-chunked
 path is a Python loop over chunks in place of ``lax.scan``; it bounds
 the live score tensor to ``(B, H, chunk_q, S_k)``.
 
-``KVCache``/``decode_attention`` come with the serving slice and
-``pad_heads_for_tp`` with tensor parallelism (a no-op without a mesh).
+The decode side (``KVCache``, ``cache_update``, ``decode_attention``)
+keeps the reference's value semantics: ``cache_update`` returns a new
+cache and never writes into the one it is given (a kept cache can be
+decoded on from again, as a serving snapshot is), and the cache's
+position stays a 0-d int32 tensor on the cache's device, so a decode
+step reads nothing back to the host. ``pad_heads_for_tp`` comes with
+tensor parallelism (a no-op without a mesh).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -99,3 +104,63 @@ def attention(
         mask = (kb_pos <= qi_pos) & (kb_pos > qi_pos - window)
         outs.append(_attend_block(qi, kb, vb, mask))
     return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode)
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor     # (B, S_max, H_kv, hd)
+    v: torch.Tensor
+    pos: torch.Tensor   # () int32: tokens already in the cache
+
+    @staticmethod
+    def zeros(b: int, s_max: int, h_kv: int, hd: int, dtype, device=None) -> "KVCache":
+        return KVCache(
+            k=torch.zeros((b, s_max, h_kv, hd), dtype=dtype, device=device),
+            v=torch.zeros((b, s_max, h_kv, hd), dtype=dtype, device=device),
+            pos=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+
+def write_at_(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """In place: ``buf[:, pos : pos + S_new] = new`` with ``pos`` a 0-d
+    device tensor (no read back to the host)."""
+    idx = pos.long() + torch.arange(new.shape[1], device=buf.device)
+    buf.index_copy_(1, idx, new.to(buf.dtype))
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache:
+    """Append S_new tokens at ``cache.pos``: a new cache (a clone of
+    ``cache``'s buffers with the slice written), as the reference's
+    ``dynamic_update_slice`` gives; ``cache`` is left unchanged."""
+    k, v = cache.k.clone(), cache.v.clone()
+    write_at_(k, k_new, cache.pos)
+    write_at_(v, v_new, cache.pos)
+    return KVCache(k=k, v=v, pos=cache.pos + k_new.shape[1])
+
+
+def decode_attention(
+    q: torch.Tensor, cache: KVCache, *, window: Optional[int] = None
+) -> torch.Tensor:
+    """Single-step attention against the cache.
+
+    q: (B, S_q, Hq, hd), the newest S_q tokens, already in the cache.
+    The cache is full-length; the mask restricts to positions < pos
+    (and the window, if local attention)."""
+    s_q, h_q, hd = q.shape[1], q.shape[2], q.shape[3]
+    s_k = cache.k.shape[1]
+    dev = q.device
+    k = repeat_kv(cache.k, h_q)
+    v = repeat_kv(cache.v, h_q)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * hd ** -0.5, k.float())
+    ki = torch.arange(s_k, device=dev)[None, :]
+    qi = (cache.pos - s_q) + torch.arange(s_q, device=dev)[:, None]  # new tokens' positions
+    mask = ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)

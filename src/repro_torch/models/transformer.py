@@ -14,24 +14,31 @@ slice to the compute dtype inside the block, as the reference does
 inside its scan. ``remat`` recomputes each block in backward
 (``torch.utils.checkpoint``).
 
-Not ported yet: the MoE FFN and VLM patches (ROADMAP Queue 1 item 7),
-``prefill``/``decode_step`` (item 5).
+Serving: ``prefill`` runs the prompt through the same attention paths
+as ``forward`` (unchunked, or query-chunked past ``chunk_q``) and fills
+a ``DecodeCache`` padded to ``s_max``; ``decode_step`` feeds one token a
+sequence through the same pieces (``rms_norm``, RoPE at ``cache.pos``,
+``swiglu``) against the cache. The cache is stored in the compute
+dtype. ``decode_step`` returns a new cache, as the reference's scan
+does: it clones the given cache once a step and writes each layer's new
+key and value into the clone, so the cache it was given stays valid.
+
+Not ported yet: the MoE FFN and VLM patches (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import attention
+from repro_torch.models.attention import KVCache, attention, decode_attention, write_at_
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, embed_init, rms_norm, swiglu
 
 MOE_TODO = "the MoE FFN is not ported yet (ROADMAP Queue 1 item 7)"
 VLM_TODO = "VLM patch inputs are not ported yet (ROADMAP Queue 1 item 7)"
-SERVE_TODO = "prefill/decode are not ported yet (ROADMAP Queue 1 item 5, serving)"
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +120,9 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _attn(p, cfg: ModelConfig, x, positions, *, chunk_q):
+def _qkv(p, cfg: ModelConfig, x, positions):
+    """Projections of ``x`` (B, S, d) with RoPE at ``positions``:
+    q (B, S, H, hd), k and v (B, S, H_kv, hd)."""
     b, s, d = x.shape
     hd = cfg.hd
     dt = x.dtype
@@ -129,19 +138,31 @@ def _attn(p, cfg: ModelConfig, x, positions, *, chunk_q):
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out(p, cfg: ModelConfig, o):
+    b, s = o.shape[:2]
+    return o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(o.dtype)
+
+
+def _mlp(p, cfg: ModelConfig, x):
+    """The residual MLP half of a block: ``x + swiglu(rms_norm(x))``."""
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _block_kv(p, cfg: ModelConfig, x, positions, *, chunk_q):
+    """One block; also returns its keys and values (B, S, H_kv, hd)."""
+    q, k, v = _qkv(p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions)
     o = attention(q, k, v, causal=True, window=cfg.window, chunk_q=chunk_q)
-    out = o.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(dt)
-    return out, k, v
+    return _mlp(p, cfg, x + _out(p, cfg, o)), k, v
 
 
 def block(p, cfg: ModelConfig, x, positions, *, chunk_q=1024):
     if cfg.moe is not None:
         raise NotImplementedError(MOE_TODO)
-    o, _, _ = _attn(p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions, chunk_q=chunk_q)
-    x = x + o
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    f = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-    return x + f
+    return _block_kv(p, cfg, x, positions, chunk_q=chunk_q)[0]
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, patches=None):
@@ -176,10 +197,21 @@ def forward(
             x = checkpoint(body, x, *lp, use_reentrant=False)
         else:
             x = body(x, *lp)
+    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _layers(params):
+    """Each layer's parameters as a dict of slices of the stacks (one
+    ``unbind`` a name)."""
+    names = list(params["layers"])
+    for lp in zip(*(params["layers"][n].unbind(0) for n in names)):
+        yield dict(zip(names, lp))
+
+
+def _logits(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     out_w = params.get("out", params["embed"])
-    logits = x @ out_w.to(cfg.cdt).T
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x @ out_w.to(cfg.cdt).T
 
 
 def lm_loss(
@@ -206,9 +238,68 @@ def lm_loss(
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(*args, **kwargs):
-    raise NotImplementedError(SERVE_TODO)
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
 
 
-def decode_step(*args, **kwargs):
-    raise NotImplementedError(SERVE_TODO)
+class DecodeCache(NamedTuple):
+    k: torch.Tensor     # (L, B, S_max, H_kv, hd), compute dtype
+    v: torch.Tensor
+    pos: torch.Tensor   # () int32
+
+
+def init_cache(cfg: ModelConfig, b: int, s_max: int, device=None) -> DecodeCache:
+    shape = (cfg.n_layers, b, s_max, cfg.n_kv_heads, cfg.hd)
+    return DecodeCache(
+        k=torch.zeros(shape, dtype=cfg.cdt, device=device),
+        v=torch.zeros(shape, dtype=cfg.cdt, device=device),
+        pos=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def prefill(
+    params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    patches: Optional[torch.Tensor] = None,
+    s_max: Optional[int] = None,
+    chunk_q: Optional[int] = -1,
+) -> Tuple[DecodeCache, torch.Tensor]:
+    """Run the prompt, build the KV cache, return logits of the last token."""
+    if cfg.moe is not None:
+        raise NotImplementedError(MOE_TODO)
+    if chunk_q == -1:
+        chunk_q = cfg.chunk_q
+    x = embed_inputs(params, cfg, tokens, patches)
+    b, s, _ = x.shape
+    s_max = max(s_max or s, s)  # cache must hold the whole prompt
+    positions = torch.arange(s, device=x.device)[None, :]
+    cache = init_cache(cfg, b, s_max, device=x.device)
+    for layer, p in enumerate(_layers(params)):
+        x, k, v = _block_kv(p, cfg, x, positions, chunk_q=chunk_q)
+        cache.k[layer, :, :s] = k
+        cache.v[layer, :, :s] = v
+    logits = _logits(params, cfg, x[:, -1])
+    return cache._replace(pos=torch.tensor(s, dtype=torch.int32, device=x.device)), logits
+
+
+def decode_step(
+    params, cfg: ModelConfig, cache: DecodeCache, tokens: torch.Tensor
+) -> Tuple[torch.Tensor, DecodeCache]:
+    """tokens: (B, 1) -> (logits (B, V), updated cache); ``cache`` is
+    left unchanged."""
+    if cfg.moe is not None:
+        raise NotImplementedError(MOE_TODO)
+    x = embed_inputs(params, cfg, tokens)                  # (B, 1, d)
+    positions = cache.pos + torch.zeros((1, 1), dtype=torch.int32, device=x.device)
+    pos = cache.pos + 1
+    ks, vs = cache.k.clone(), cache.v.clone()              # the new cache
+    for layer, p in enumerate(_layers(params)):
+        q, k, v = _qkv(p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions)
+        write_at_(ks[layer], k, cache.pos)
+        write_at_(vs[layer], v, cache.pos)
+        o = decode_attention(q, KVCache(ks[layer], vs[layer], pos), window=cfg.window)
+        x = _mlp(p, cfg, x + _out(p, cfg, o))
+    return _logits(params, cfg, x[:, 0]), DecodeCache(k=ks, v=vs, pos=pos)

@@ -12,7 +12,9 @@ are kept (see :mod:`repro_torch.utils.treelib`).
 :func:`params_from_numpy` and :func:`train_state_from_numpy` load a JAX
 parameter or train-state tree into the port's model module and
 optimizer state; :func:`copy_tree_` loads any tree into another in
-place (a restore into a live train state).
+place (a restore into a live train state). :func:`cache_from_numpy` and
+:func:`cache_to_numpy` carry a decode cache (``k``, ``v``, ``pos``)
+between the two packages' ``DecodeCache`` types.
 """
 from __future__ import annotations
 
@@ -114,3 +116,21 @@ def train_state_from_numpy(tree: Any, model_or_cfg: Any, device: Any = "cuda") -
         },
         "step": _from_numpy(tree["step"], dev),
     }
+
+
+def cache_from_numpy(cache: Any, device: Any = "cuda") -> Any:
+    """A decode cache with NumPy leaves (the JAX package's
+    ``DecodeCache``, or any ``(k, v, pos)``) as the port's
+    :class:`~repro_torch.models.transformer.DecodeCache` on ``device``."""
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.models.transformer import DecodeCache
+
+    dev = resolve_device(device)
+    return DecodeCache(*(_from_numpy(x, dev) for x in cache))
+
+
+def cache_to_numpy(cache: Any) -> Any:
+    """The port's ``DecodeCache`` with host NumPy leaves (same type, so
+    ``repro.models.transformer.DecodeCache(*cache_to_numpy(c))`` feeds
+    the JAX package)."""
+    return tree_to_numpy(cache)

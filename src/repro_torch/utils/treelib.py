@@ -1,14 +1,17 @@
 """Pytree helpers: named leaves in JAX's order, without JAX.
 
 Counterpart of ``repro/utils/treelib.py``. A tree is made of dicts,
-lists, tuples and ``None``; anything else is a leaf. Leaves come out in
-the order ``jax.tree_util.tree_flatten_with_path`` gives and are named
-as ``jax.tree_util.keystr`` names them (``"['params']['w'][0]"``): dict
-keys sorted (an ``OrderedDict`` keeps its own order), sequences in index
-order, ``None`` an empty node. Stream offsets, the manifest leaf table
-and the name check on restore all depend on that order, so a state
-saved by either package restores in the other. (``torch.utils._pytree``
-keeps dict insertion order, which is why it is not used.)
+lists, tuples, named tuples and ``None``; anything else is a leaf.
+Leaves come out in the order ``jax.tree_util.tree_flatten_with_path``
+gives and are named as ``jax.tree_util.keystr`` names them
+(``"['params']['w'][0]"``, ``"['cache'].k"``): dict keys sorted (an
+``OrderedDict`` keeps its own order), sequences in index order, a named
+tuple's fields in their order, by name (its type is kept, so
+``unflatten`` rebuilds it), ``None`` an empty node. Stream offsets, the
+manifest leaf table and the name check on restore all depend on that
+order and those names, so a state saved by either package restores in
+the other. (``torch.utils._pytree`` keeps dict insertion order, which is
+why it is not used.)
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from collections import OrderedDict
 from typing import Any, Callable, List, Optional, Tuple
 
 # A treedef is a hashable nested tuple:
-#   _LEAF | ("none",) | (kind, keys, children) for dicts | (kind, children)
+#   _LEAF | ("none",) | (kind, keys, children) for dicts and NamedTuples
+#   (keys: the fields) | (kind, children) for lists and tuples
 _LEAF = ("leaf",)
 _NONE = ("none",)
 IsLeaf = Optional[Callable[[Any], bool]]
@@ -36,6 +40,13 @@ def _flatten(x: Any, path: str, out: List[Tuple[str, Any]], is_leaf: IsLeaf):
             kind,
             keys,
             tuple(_flatten(x[k], f"{path}[{k!r}]", out, is_leaf) for k in keys),
+        )
+    if isinstance(x, tuple) and hasattr(type(x), "_fields"):   # a NamedTuple
+        kind = type(x)
+        return (
+            kind,
+            kind._fields,
+            tuple(_flatten(v, f"{path}.{f}", out, is_leaf) for f, v in zip(kind._fields, x)),
         )
     if isinstance(x, (list, tuple)):
         return (
@@ -72,8 +83,10 @@ def unflatten(treedef: Any, leaves: List[Any]) -> Any:
             return None
         if len(td) == 3:
             kind, keys, children = td
-            d = {k: build(c) for k, c in zip(keys, children)}
-            return d if kind is dict else OrderedDict(d)
+            vals = [build(c) for c in children]
+            if kind is dict or kind is OrderedDict:
+                return kind(zip(keys, vals))
+            return kind(*vals)     # a NamedTuple
         kind, children = td
         seq = [build(c) for c in children]
         return seq if kind is list else kind(seq)

@@ -254,3 +254,78 @@ def test_train_runs_on_the_card_are_bit_equal(cuda, compute):
     for (n, x), (_, y) in zip(flatten_with_names(tree_to_numpy(a.state))[0],
                               flatten_with_names(tree_to_numpy(b.state))[0]):
         assert x.tobytes() == y.tobytes(), n
+
+
+def test_generate_on_the_card_matches_the_cpu(cuda):
+    """Server.generate of qwen's smoke config (float32) on the card
+    keeps params and cache on the card; the CPU, teacher-forced on the
+    card's tokens, gives each step's logits within 1e-4 (float32, summed
+    in another order; tokens are compared only within one device)."""
+    from repro_torch.serve import ServeConfig, Server
+    from repro_torch.utils.convert import tree_from_numpy, tree_to_numpy
+
+    _, model, _ = _smoke()
+    host = tree_to_numpy(model.init(torch.Generator().manual_seed(0), "cpu").state_tree())
+    prompt = np.random.default_rng(0).integers(0, 256, (3, 40)).astype(np.int32)
+    server = Server(model, tree_from_numpy(host, "cuda"), ServeConfig(max_new_tokens=8))
+    toks, cache = server.generate({"tokens": prompt})
+    assert cache.k.device.type == "cuda" and cache.pos.device.type == "cuda"
+    again, _ = server.generate({"tokens": prompt})
+    np.testing.assert_array_equal(again, toks)
+    params = {"cpu": tree_from_numpy(host, "cpu"), "cuda": server.params}
+    logits = {}
+    with torch.inference_mode():
+        for dev, p in params.items():
+            c, lg = model.prefill(p, {"tokens": torch.as_tensor(prompt, device=dev)}, s_max=48)
+            out = [lg.cpu()]
+            for i in range(toks.shape[1] - 1):
+                lg, c = model.decode_step(p, c, torch.as_tensor(toks[:, i : i + 1], device=dev))
+                out.append(lg.cpu())
+            logits[dev] = torch.stack(out)
+    assert torch.equal(logits["cuda"].argmax(-1).T.int(), torch.as_tensor(toks))
+    np.testing.assert_allclose(logits["cuda"].numpy(), logits["cpu"].numpy(), rtol=0, atol=1e-4)
+
+
+def test_snapshot_resume_on_the_card(cuda, tmp_path):
+    """A serving snapshot (params + DecodeCache + next token) saved with
+    the device pre-codec (fused_precodec launched) and restored from the
+    PFS into a fresh server on the card decodes on with the tokens of
+    the uninterrupted run."""
+    from repro_torch.models.transformer import DecodeCache, Transformer
+    from repro_torch.serve import ServeConfig, Server
+
+    cfg, model, _ = _smoke("bfloat16")
+    params = model.init(torch.Generator(device="cuda").manual_seed(3), "cuda").state_tree()
+    prompt = np.random.default_rng(1).integers(0, 256, (4, 24)).astype(np.int32)
+    server = Server(model, params, ServeConfig(max_new_tokens=10, s_max=40))
+    want, _ = server.generate({"tokens": prompt})
+    with torch.inference_mode():
+        cache, logits = model.prefill(params, {"tokens": torch.as_tensor(prompt, device="cuda")},
+                                      s_max=40)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        for _ in range(5):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+    before = fused_precodec.launches
+    mgr = CheckpointManager(CheckpointConfig(
+        root=str(tmp_path), cluster=theta_like(2, 2), codec="zstd+delta", device_precodec=True))
+    mgr.save(1, server.snapshot_state(cache) | {"tok": tok})
+    mgr.wait()
+    assert not mgr.flush_errors and fused_precodec.launches > before
+    mgr.close()
+    mgr = CheckpointManager(CheckpointConfig(root=str(tmp_path), cluster=theta_like(3, 1)))
+    for node in range(2):
+        mgr.local.drop_node(node)
+    _, got = mgr.restore({"params": Transformer(cfg, device="meta").state_tree(),
+                          "cache": model.cache_struct(4, 40),
+                          "tok": torch.empty((4, 1), device="meta")})
+    mgr.close()
+    assert isinstance(got["cache"], DecodeCache) and got["cache"].k.device.type == "cuda"
+    resumed = Server(model, got["params"], server.cfg)
+    cache, tok, out = got["cache"], got["tok"], []
+    with torch.inference_mode():
+        for _ in range(5):
+            out.append(tok[:, 0].cpu().numpy())
+            logits, cache = model.decode_step(resumed.params, cache, tok)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+    np.testing.assert_array_equal(np.stack(out, 1), want[:, 5:])

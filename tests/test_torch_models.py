@@ -113,10 +113,14 @@ def test_families_not_ported_yet_raise(arch):
 
 
 def test_serving_and_patches_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        transformer.prefill()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        transformer.decode_step()
+    """Serving the dense family is ported (tests/test_torch_serve.py);
+    serving the MoE family and VLM patch inputs still raise, naming
+    their ROADMAP item."""
+    moe = get_smoke_config("qwen2-moe-a2.7b")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        transformer.prefill({}, moe, torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        transformer.decode_step({}, moe, None, torch.zeros((1, 1), dtype=torch.int32))
     _, _, ref_np = ref_params("qwen1.5-0.5b")
     _, module = port_model("qwen1.5-0.5b", ref_np)
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -5,6 +5,7 @@ import os
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from collections import OrderedDict
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,12 @@ import torch
 from repro.utils.treelib import flatten_with_names as jax_flatten
 from repro_torch.utils.convert import tree_from_numpy, tree_to_numpy
 from repro_torch.utils.treelib import flatten_with_names, tree_map, unflatten
+
+
+class _Cache(NamedTuple):
+    k: object
+    v: object
+    pos: object
 
 
 def _shuffled(d, rng):
@@ -47,6 +54,13 @@ def _trees():
         "ordered": OrderedDict([("b", leaf()), ("a", leaf())]),
         "empty_nodes": {"a": [], "b": {}, "c": (), "d": leaf()},
         "scalar": leaf(),
+        # a serving snapshot: JAX names a NamedTuple's children by field
+        # (".k"), not by index, and unflatten must give the type back
+        "namedtuple": {
+            "cache": _Cache(leaf(), leaf(), leaf()),
+            "tok": leaf(),
+            "nested": [_Cache([leaf(), None], {"b": leaf(), "a": leaf()}, (leaf(),))],
+        },
     }
     return trees
 
@@ -64,6 +78,9 @@ def test_names_and_order_match_jax(name):
     # the treedef rebuilds the same structure
     back = unflatten(treedef, [l for _, l in got])
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    if name == "namedtuple":
+        assert "['cache'].k" in [n for n, _ in got]
+        assert type(back["cache"]) is _Cache and type(back["nested"][0]) is _Cache
 
 
 def test_dict_order_is_sorted_not_insertion():
