@@ -8,14 +8,16 @@ sources in this checkout (``src/repro_torch/kernels/*/csrc/*.cu``, with
 ``nvcc``, all started together, into ``build/repro_torch/``).
 
 Phase 1 holds each kernel against its plain PyTorch version on the card,
-at the shapes the main path gives it and on constructed edge cases, and
+at the shapes a full-depth train state gives it (those of phases 4 and
+6) and on constructed edge cases, and
 times both (and, for dequantize, the one PyTorch call that computes the
 same function). Equality is exact (tolerance zero).
 
 Phase 2 is the main path: the training state of qwen1.5-0.5b at its
 published widths (``src/repro/configs/qwen1_5_0_5b.py``: 24 layers,
-d_model 1024, d_ff 2816, vocab 151936, untied output, QKV bias) with
-AdamW moments, all float32 from a NumPy seed, lives on the card. Three
+d_model 1024, d_ff 2816, vocab 151936, untied output, QKV bias), cut to
+``--layers`` (12 by default), with AdamW moments, all float32 from a
+NumPy seed, lives on the card. Three
 steps go through ``CheckpointManager.stage``/``save`` with the device
 pre-codec (strategy stripe_aligned, codec zstd+delta, 1 MiB chunks,
 16 ranks), updating the state in place between ``stage`` and ``save``
@@ -29,12 +31,13 @@ followed by the host dequantize, and ``dequantize_tree_reference`` (one
 dequantize launch per leaf, on the card) of the staged state's
 quantized tree, exactly.
 
-Phase 3 runs the pre-fusion chain on the main path's words: the state's
+Phase 3 runs the pre-fusion chain on a full-depth train state of its
+own (24 layers, the widths of phase 2, its own seed): the state's
 word stream (the pre-codec's own assembly) before and after a fine-tune
 of the top layers, ``xor_delta`` of the two, one ``checksum_u32`` per
 1 MiB chunk and the per-chunk dirty counts as one reduction, held equal
 to ``fused_precodec`` of the same streams; both wall times are logged.
-``--layers`` cuts the depth (never a width) when a run must be shorter.
+``--layers`` cuts phase 2's depth (never a width) and no other phase's.
 
 Phase 4 is the port's trainer (``repro_torch.launch.train.run``) at
 qwen1.5-0.5b's full width and depth (float32 params, bfloat16 compute,
@@ -73,6 +76,26 @@ reader balance, prefill and decode times, tokens/s, swap_s, the
 snapshot's stage, window, flush and restore times, and peak device
 memory. ``--layers`` never cuts phase 5.
 
+Phase 6 is the control plane (``repro_torch.control``): two training
+jobs, each holding a full-width, full-depth train state on the card
+(its own seed), checkpoint through one ``ControlPlane`` over one PFS
+root (budget of 2 pending flushes, a bandwidth cap of a quarter of the rate
+at which phase 2's anchor flushed unthrottled). ``finetune``
+(priority 1) saves its anchor, whose flush runs under the cap, then a
+top-4-layer step 2 that queues behind it; ``pretrain`` (priority 4)
+saves its anchor, which preempts finetune's queued step 2 (parked as
+``flush_partial``); both anchors flush through the fair-share limiter at
+4:1; finetune's step 2 drains to ``flush_done`` once the budget frees.
+Checks: one preemption, the budget never above 2, no flush errors, the
+aggregate never faster than the cap, pretrain's step 1 and finetune's
+step 2 restored on 3x1 with L1 dropped equal to their host copies and
+pre-stage digests, and a fresh plane recovering both jobs from
+``registry.json``. It prints each tenant's saves and flushes, the bytes
+each flushed while both were backlogged, ``simulate_flush_shared``'s
+prices, the restores, peak device memory and free disk. Everything
+under the run's temporary directory (the roots that phases 4 and 5
+leave) is removed first. ``--layers`` never cuts phase 6.
+
 Prints the card's name and power limit, per-step numbers, one JSON line
 of kernels, and last ``{"ok": true, "device": {...}}``. Exits non-zero
 (with no result) without a CUDA device, outside the repository, or when
@@ -101,6 +124,10 @@ SEED = 20211203
 
 # qwen1.5-0.5b (src/repro/configs/qwen1_5_0_5b.py)
 VOCAB, D_MODEL, D_FF, N_LAYERS = 151936, 1024, 2816, 24
+# phase 2's default depth: with phases 4-6 at full depth the script took
+# 794.8-948.9 s on one H100 with phase 2 at 24 layers (PERF.md), too
+# close to the 1,200 s a run may take
+PHASE2_LAYERS = 12
 LAYER_SHAPES = {
     "wq": (D_MODEL, D_MODEL), "wk": (D_MODEL, D_MODEL),
     "wv": (D_MODEL, D_MODEL), "wo": (D_MODEL, D_MODEL),
@@ -207,13 +234,10 @@ def quantized_values(n_layers):
     return 3 * sum(_numel(s) for _, s in state_specs(n_layers) if _numel(s) >= 4096)
 
 
-def make_state(n_layers, device, pool):
-    """The train state on ``device``, values from a NumPy seed: params and
-    mu standard normal, nu positive (|N(0,1)| * 1e-3 + 1e-8)."""
-    import numpy as np
+def empty_state(n_layers, device):
+    """The train state's structure, uninitialised, on ``device`` (on
+    "meta" it is a restore target: a restore reads names, not values)."""
     import torch
-
-    block = 1 << 24
 
     def tree():
         t = {"embed": None, "final_norm": None, "out": None, "layers": {}}
@@ -225,9 +249,19 @@ def make_state(n_layers, device, pool):
                 t["layers"][path[1]] = leaf
         return t
 
-    state = {"params": tree(), "opt": {"mu": tree(), "nu": tree(),
-                                       "count": torch.zeros((), dtype=torch.int32, device=device)},
-             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    return {"params": tree(), "opt": {"mu": tree(), "nu": tree(),
+                                      "count": torch.zeros((), dtype=torch.int32, device=device)},
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def make_state(n_layers, device, pool, seed=SEED):
+    """The train state on ``device``, values from a NumPy seed: params and
+    mu standard normal, nu positive (|N(0,1)| * 1e-3 + 1e-8)."""
+    import numpy as np
+    import torch
+
+    block = 1 << 24
+    state = empty_state(n_layers, device)
     jobs = []
     for gi, (group, t) in enumerate((("params", state["params"]),
                                      ("mu", state["opt"]["mu"]),
@@ -240,7 +274,7 @@ def make_state(n_layers, device, pool):
 
     def gen(job):
         group, flat, lo, hi, key = job
-        a = np.random.default_rng([SEED, *key]).standard_normal(hi - lo, dtype=np.float32)
+        a = np.random.default_rng([seed, *key]).standard_normal(hi - lo, dtype=np.float32)
         if group == "nu":
             a = np.abs(a) * np.float32(1e-3) + np.float32(1e-8)
         return job, a
@@ -261,7 +295,7 @@ def fine_tune_top_layers(state):
     """In place: a fine-tune of the top four layers (params, mu, nu)."""
     for t in (state["params"], state["opt"]["mu"], state["opt"]["nu"]):
         for leaf in t["layers"].values():
-            leaf[-4:].mul_(0.999).add_(1e-4)     # layers 20:24 of 24
+            leaf[-4:].mul_(0.999).add_(1e-4)     # the top four layers
     state["opt"]["count"].add_(1)
     state["step"].add_(1)
 
@@ -668,8 +702,8 @@ def clone_raw_leaves(qtree):
 
 
 def phase2(n_layers, tmp, pool, report):
-    """The main path. Returns the state (phase 3 goes on from it) and
-    the kernel launches counted over this phase."""
+    """The main path. Returns the kernel launches counted over this
+    phase."""
     import numpy as np
     import torch
 
@@ -782,15 +816,16 @@ def phase2(n_layers, tmp, pool, report):
     for name in ("fused_precodec", "quantize", "checksum", "dequantize"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    return state, launches
+    return launches
 
 
 # -- phase 3 --------------------------------------------------------------
 
 
-def phase3(state, report):
+def phase3(pool, report):
     """The pre-fusion chain (benchmarks/kernel_bench.py's per-kernel
-    pass) on the main path's words, held equal to the fused pass."""
+    pass) on the words of a full-depth train state, held equal to the
+    fused pass."""
     import torch
 
     from repro_torch.core.precodec import DevicePrecodec
@@ -799,6 +834,7 @@ def phase3(state, report):
     from repro_torch.kernels.fused.ops import fused_precodec
 
     cw = CHUNK_SIZE // 4
+    state = make_state(N_LAYERS, DEVICE, pool, seed=SEED + 10)
     pc = DevicePrecodec(chunk_size=CHUNK_SIZE, device=DEVICE)
     _, prev = pc.assemble(state)
     fine_tune_top_layers(state)
@@ -809,8 +845,8 @@ def phase3(state, report):
     sync()
     at_start = before_gc = None
     if DEVICE == "cuda":
-        # what phase 2's objects still hold on the card, before and after
-        # a collection of reference cycles
+        # what earlier phases' objects still hold on the card beside this
+        # state, before and after a collection of reference cycles
         before_gc = torch.cuda.memory_allocated()
         gc.collect()
         at_start = torch.cuda.memory_allocated()
@@ -876,7 +912,7 @@ def phase3(state, report):
     for name in ("xor_delta", "checksum", "fused_precodec"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched in phase 3")
-    del prev, cur
+    del prev, cur, state
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return launches
@@ -1503,6 +1539,252 @@ def phase5(tmp, report, step4_digests, *, model_cfg=None, batch=8, prompt=2048, 
     return launches
 
 
+# -- phase 6 --------------------------------------------------------------
+
+# free bytes phase 6 needs on the disk of its root: two anchors of the
+# train state on L1 and on the PFS (4 x 7.43 GB), a delta, and room
+PHASE6_MIN_FREE = 40e9
+# the cap, as a share of the rate at which phase 2's anchor flushed
+# unthrottled. finetune's anchor must still be flushing when pretrain's
+# save asks for a slot, with a margin of 1.5. That rate varies between
+# runs (445-659 MB/s on one H100), and pretrain's window beside a flush
+# is longer than phase 2's (21 s against 12 s): at a half the margin
+# came out 1.31, at a third 1.15 (PERF.md, phase 6). A quarter leaves
+# 1.5-2.5.
+PHASE6_CAP_SHARE = 1 / 4
+PHASE6_JOBS = {"pretrain": 4.0, "finetune": 1.0}    # priority, and weight
+PHASE6_CONFIG = dict(strategy="stripe_aligned", codec="zstd+delta", chunk_size=CHUNK_SIZE,
+                     device_precodec=True, precodec="none", delta_every=4,
+                     health_tick=0.05)
+
+
+def charge_log(leaf):
+    """Record (time, bytes) of every charge a tenant's quota leaf grants:
+    the bytes its flush writers let through the arbiter, when they pass."""
+    events = []
+    acquire = leaf.acquire
+
+    def counted(n, cancel=None):
+        waited = acquire(n, cancel)
+        events.append((time.perf_counter(), n))
+        return waited
+
+    leaf.acquire = counted
+    return events
+
+
+def bytes_between(events, t0, t1):
+    return sum(n for t, n in events if t0 <= t <= t1)
+
+
+def phase6(tmp, pool, report, *, n_layers=N_LAYERS):  # n_layers: CPU rehearsal only
+    """Two training jobs checkpoint through one control plane over one
+    PFS root, on the card: ``pretrain`` (priority 4) and ``finetune``
+    (priority 1) each hold a full train state, share a pending-flush
+    budget of 2 and a flush bandwidth cap, and stage with the device
+    pre-codec. finetune's anchor flushes under the cap, its step 2 queues
+    behind it and fills the budget, pretrain's anchor preempts that
+    queued step (parked as ``flush_partial``), both anchors flush through
+    the fair-share limiter at 4:1, and finetune's step 2 drains once the
+    budget frees. Then pretrain's step 1 and finetune's step 2 restore on
+    3x1 with L1 dropped, byte- and digest-equal, and a fresh plane over
+    the root recovers both jobs from its registry. Returns the kernel
+    launches counted over the phase."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.control import ControlPlane
+    from repro_torch.core import make_plan, simulate_flush_shared, theta_like
+
+    t_phase = time.perf_counter()
+    root = tmp / "plane"
+    free_before = shutil.disk_usage(tmp).free
+    if free_before < PHASE6_MIN_FREE:
+        raise AssertionError(f"phase6: {free_before} bytes free, {PHASE6_MIN_FREE:.0f} needed")
+    anchor = report["steps_none"][0]
+    rate = anchor["flush_bytes"] / anchor["flush_s"]
+    cap = rate * PHASE6_CAP_SHARE
+    log(f"phase6 cap={cap:.0f} B/s ({PHASE6_CAP_SHARE:.3f} of phase 2's unthrottled anchor "
+        f"flush, {rate:.0f} B/s); free bytes {free_before}")
+    gc.collect()
+    reset_counts()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    cp = ControlPlane(str(root), device=DEVICE, max_pending_flushes=2, flush_bw_cap=cap)
+    mgrs = {name: cp.register_job(name, theta_like(4, 4), priority=prio, **PHASE6_CONFIG)
+            for name, prio in PHASE6_JOBS.items()}
+    pt, ft = mgrs["pretrain"], mgrs["finetune"]
+    charges = {name: charge_log(m._limiter) for name, m in mgrs.items()}
+    done = {}                                   # (job, step) -> time of flush_done
+    for name in mgrs:
+        cp.subscribe(name, lambda s, name=name: done.setdefault((name, s), time.perf_counter()))
+    states = {name: make_state(n_layers, DEVICE, pool, seed=SEED + i)
+              for i, name in enumerate(PHASE6_JOBS, start=1)}
+    pt_state, ft_state = states["pretrain"], states["finetune"]
+    copies = {"pretrain": host_copy(pt_state)}
+    pre = {"pretrain": device_digests(pt_state)}
+
+    samples, stop = [], threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            samples.append((cp.admission.held(), ft.step_status(2)))
+            stop.wait(0.02)
+
+    watcher = threading.Thread(target=watch, name="phase6-watch", daemon=True)
+    watcher.start()
+    stats = {}
+    try:
+        ft.stage(1, ft_state)
+        stats["finetune", 1] = ft.save(1, ft_state)     # the anchor flushes under the cap
+        t_ft_flush = time.perf_counter()
+        fine_tune_top_layers(ft_state)
+        pre["finetune"] = device_digests(ft_state)
+        ft.stage(2, ft_state)
+        stats["finetune", 2] = ft.save(2, ft_state)     # queues behind it: budget full
+        held_full = cp.admission.held()
+        pt.stage(1, pt_state)
+        stats["pretrain", 1] = pt.save(1, pt_state)     # asks for a slot
+        t_pt_slot = time.perf_counter()
+        ft1_in_flight = ("finetune", 1) not in done
+        copies["finetune"] = host_copy(ft_state)        # unchanged since its stage
+        if not np.array_equal(device_digests(ft_state), pre["finetune"]):
+            raise AssertionError("phase6: finetune's state changed after its stage")
+        pt.wait()
+        ft.wait()
+        deadline = time.monotonic() + 600
+        while ft.step_status(2) != "flush_done" or stats["finetune", 2].flush is None:
+            if time.monotonic() > deadline or ft.flush_errors:
+                raise AssertionError(f"phase6: finetune step 2 never drained: "
+                                     f"{ft.step_status(2)} {ft.flush_errors}")
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        watcher.join()
+    samples.append((cp.admission.held(), ft.step_status(2)))
+    steps = {name: cp.list_steps(name) for name in mgrs}
+    records = {name: cp.record(name) for name in mgrs}
+    plans = {name: make_plan("stripe_aligned", theta_like(4, 4),
+                             [r.stored_size for r in m._manifest_pfs(1).ranks])
+             for name, m in mgrs.items()}
+    free_after = shutil.disk_usage(tmp).free
+
+    # -- the arbiter's checks -------------------------------------------
+    held_max = max(h for h, _ in samples)
+    seen = [st for i, (_, st) in enumerate(samples)
+            if st is not None and (i == 0 or samples[i - 1][1] != st)]
+    errors = {name: m.flush_errors for name, m in mgrs.items()}
+    first = min(t for ev in charges.values() for t, _ in ev)
+    last = max(done.values())
+    flushed = {name: sum(n for _, n in ev) for name, ev in charges.items()}
+    n_ranks = theta_like(4, 4).world_size
+    credits = sum(max(1 << 20, cap / 8) + (st.flush.bytes_written / n_ranks)
+                  for st in stats.values())
+    total = sum(flushed.values())
+    floor_s = 0.8 * (total - credits) / cap
+    alone_s = stats["finetune", 1].flush.bytes_written / cap
+    margin = alone_s / (t_pt_slot - t_ft_flush)
+    # both anchors backlogged: from the later first charge to the earlier end
+    both = (max(min(t for t, _ in ev) for ev in charges.values()),
+            min(done["finetune", 1], done["pretrain", 1]))
+    window = {name: bytes_between(ev, *both) for name, ev in charges.items()}
+    sims = simulate_flush_shared([plans["pretrain"], plans["finetune"]], flush_bw_cap=cap,
+                                 weights=[PHASE6_JOBS["pretrain"], PHASE6_JOBS["finetune"]])
+    row = dict(cap=cap, unthrottled_rate=rate, margin=margin, preemptions=cp.admission.preemptions, held_max=held_max,
+               held_after_finetune=held_full, finetune_step2_seen=seen,
+               finetune_anchor_in_flight=ft1_in_flight, flush_errors=errors,
+               flushed_bytes=flushed, elapsed_s=last - first, cap_floor_s=floor_s,
+               credit_bytes=credits, both_backlogged_s=both[1] - both[0],
+               both_backlogged_bytes=window, free_bytes_before=free_before,
+               free_bytes_after=free_after, steps=steps)
+    row["saves"] = {f"{name}/{step}": dict(
+        stage_s=st.stage_s, window_s=st.encode_time + st.local_time,
+        flush_s=st.flush.duration, throttle_wait=st.flush.throttle_wait,
+        bytes=st.flush.bytes_written) for (name, step), st in stats.items()}
+    row["sim_flush_s"] = {"pretrain": sims[0].flush_time, "finetune": sims[1].flush_time}
+    for key, r in row["saves"].items():
+        log(f"phase6 {key}: stage_s={r['stage_s']:.4f} window_s={r['window_s']:.4f} "
+            f"flush_s={r['flush_s']:.4f} throttle_wait={r['throttle_wait']:.4f} "
+            f"bytes={r['bytes']}")
+    ratio = window["pretrain"] / max(1, window["finetune"])
+    log(f"phase6 both backlogged {both[1] - both[0]:.3f} s: pretrain {window['pretrain']} B, "
+        f"finetune {window['finetune']} B, ratio {ratio:.3f} (weights 4:1)")
+    log(f"phase6 simulate_flush_shared at the cap, weights 4:1: pretrain "
+        f"{sims[0].flush_time:.3f} s, finetune {sims[1].flush_time:.3f} s; measured anchor "
+        f"flushes {row['saves']['pretrain/1']['flush_s']:.3f} s and "
+        f"{row['saves']['finetune/1']['flush_s']:.3f} s")
+    log(f"phase6 margin {margin:.3f} (1.5 wanted): finetune's anchor alone at the cap {alone_s:.3f} s, "
+        f"pretrain asked for a slot {t_pt_slot - t_ft_flush:.3f} s after its flush began; "
+        f"in flight then: {ft1_in_flight}")
+    log(f"phase6 preemptions={row['preemptions']} held_max={held_max} (budget 2, full after "
+        f"finetune's step 2: {held_full}); finetune step 2 seen {seen}; flush errors {errors}")
+    log(f"phase6 {total} bytes through the cap in {last - first:.3f} s "
+        f"(floor 0.8 x (bytes - {credits:.0f} credit) / cap = {floor_s:.3f} s)")
+    if row["preemptions"] != 1:
+        raise AssertionError(f"phase6: {row['preemptions']} preemptions, not 1 "
+                             f"(finetune's anchor in flight when pretrain asked: {ft1_in_flight})")
+    if held_max > 2 or held_full != 2:
+        raise AssertionError(f"phase6: budget held {held_max} at most, {held_full} when full")
+    if seen != ["flush_partial", "flush_done"]:
+        raise AssertionError(f"phase6: finetune step 2 went through {seen}")
+    if any(errors.values()):
+        raise AssertionError(f"phase6: flush errors {errors}")
+    if last - first < floor_s:
+        raise AssertionError(f"phase6: {total} bytes in {last - first:.3f} s beat the cap")
+
+    # -- restores on 3x1 with L1 dropped, and the registry recovered ------
+    cp.close()
+    del states, pt_state, ft_state
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    cp2 = ControlPlane(str(root), device=DEVICE, max_pending_flushes=2, flush_bw_cap=cap)
+    got_records = {name: cp2.record(name) for name in cp2.jobs()}
+    if got_records != records or {n: cp2.list_steps(n) for n in cp2.jobs()} != steps:
+        raise AssertionError(f"phase6: the fresh plane recovered {got_records} "
+                             f"with steps {[cp2.list_steps(n) for n in cp2.jobs()]}")
+    log(f"phase6 a fresh plane recovered {sorted(got_records)} from registry.json with "
+        f"steps {steps}")
+    for name in mgrs:
+        drop_l1(cp2.manager(name))
+    row["restore_s"] = {}
+    for name, step in (("pretrain", 1), ("finetune", 2)):
+        t0 = time.perf_counter()
+        got_step, tree = cp2.restore_to_geometry(name, empty_state(n_layers, "meta"),
+                                                 theta_like(3, 1), step=step)
+        sync()
+        row["restore_s"][name] = time.perf_counter() - t0
+        assert got_step == step
+        assert_equal_to_host(tree, copies.pop(name), f"phase6 {name} step {step}")
+        if not np.array_equal(device_digests(tree), pre[name]):
+            raise AssertionError(f"phase6: {name} step {step}: restored digests differ")
+        del tree
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        log(f"phase6 {name} step {step} restored on 3x1 from the PFS in "
+            f"{row['restore_s'][name]:.3f} s: equal to its host copy and its pre-stage digests")
+    cp2.close()
+    shutil.rmtree(root)
+
+    launches = read_counts()
+    row["launches"] = launches
+    row["peak_device_bytes"] = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    row["wall_s"] = time.perf_counter() - t_phase
+    report["phase6"] = row
+    log(f"phase6 peak_device_bytes={row['peak_device_bytes']} free bytes before "
+        f"{free_before} after {free_after} wall {row['wall_s']:.1f} s [{report.get('card')}]; "
+        f"launches: {launches}")
+    for name in ("fused_precodec", "checksum"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase6: {name} was not launched")
+    return launches
+
+
 # (name, report key, source, the TPU kernel's body it replaces)
 KERNEL_ROWS = [
     ("fused_precodec", "fused", "src/repro_torch/kernels/fused/csrc/fused_precodec.cu",
@@ -1520,9 +1802,9 @@ KERNEL_ROWS = [
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=N_LAYERS,
+    ap.add_argument("--layers", type=int, default=PHASE2_LAYERS,
                     help="depth of phase 2's model state (widths are never cut; "
-                         "phases 4 and 5 always run the full depth)")
+                         "every other phase runs the full depth)")
     args = ap.parse_args(argv)
 
     # cuBLAS reads this when it makes its handle; phase 4's bit-exact
@@ -1555,7 +1837,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"phase0 ptxas {name}: {line.strip()}")
 
-    n_words, n_quant = state_words(args.layers), quantized_values(args.layers)
+    n_words, n_quant = state_words(N_LAYERS), quantized_values(N_LAYERS)
     phase_s = report["phase_s"] = {}
     t0 = time.perf_counter()
     phase1_fused(n_words, report)
@@ -1569,12 +1851,13 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
             ThreadPoolExecutor(8) as pool:
         t0 = time.perf_counter()
-        state, launches2 = phase2(args.layers, Path(tmp), pool, report)
+        launches2 = phase2(args.layers, Path(tmp), pool, report)
         phase_s["2"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        launches3 = phase3(state, report)
+        launches3 = phase3(pool, report)
         phase_s["3"] = time.perf_counter() - t0
-        del state
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1583,7 +1866,16 @@ def main(argv=None):
         t0 = time.perf_counter()
         launches5 = phase5(Path(tmp), report, step4_digests)
         phase_s["5"] = time.perf_counter() - t0
-    launches = [launches2, launches3, launches4, launches5]
+        # room for phase 6: clear everything under tmp (phase 2 removed its
+        # roots; phases 4 and 5 leave theirs)
+        for old in Path(tmp).iterdir():
+            shutil.rmtree(old) if old.is_dir() else old.unlink()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches6 = phase6(Path(tmp), pool, report)
+        phase_s["6"] = time.perf_counter() - t0
+    launches = [launches2, launches3, launches4, launches5, launches6]
     report["launches"] = {f"phase{i}": n for i, n in enumerate(launches, start=2)}
 
     kernels = []

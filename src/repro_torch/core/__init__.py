@@ -1,6 +1,5 @@
 """Aggregated asynchronous multi-level checkpointing (the paper's core),
-on PyTorch. Counterpart of ``repro.core``; the fluid simulator
-(``repro.core.sim``) is not ported yet.
+on PyTorch. Counterpart of ``repro.core``.
 
 Public API:
 
@@ -9,6 +8,8 @@ Public API:
 * :func:`~repro_torch.core.strategies.make_plan` — build a FlushPlan from a
   strategy name (``file_per_process`` | ``posix`` | ``mpiio`` |
   ``stripe_aligned`` | ``gio_sync``).
+* :func:`~repro_torch.core.sim.simulate_flush` — price a plan on the modeled
+  Theta-like machine (benchmark harness).
 """
 from repro_torch.core.admission import AdmissionController
 from repro_torch.core.cluster import ClusterSpec, NodeSpec, PFSSpec, theta_like
@@ -57,6 +58,12 @@ from repro_torch.core.serialize import (
     default_codec_impl,
     encode_state,
     serialize_tree,
+)
+from repro_torch.core.sim import (
+    FlushSimulator,
+    SimReport,
+    simulate_flush,
+    simulate_flush_shared,
 )
 from repro_torch.core.storage import (
     CancelToken,
@@ -117,6 +124,10 @@ __all__ = [
     "default_codec_impl",
     "encode_state",
     "serialize_tree",
+    "FlushSimulator",
+    "SimReport",
+    "simulate_flush",
+    "simulate_flush_shared",
     "LeaderAssignment",
     "ScanResult",
     "elect_leaders",

@@ -21,6 +21,7 @@ from repro_torch.kernels.checksum.ref import IDX_MOD
 from repro_torch.kernels.common import (
     bytes_to_u32,
     check_operand,
+    count_launch,
     int32_bits,
     on_cpu,
     resolve_device,
@@ -81,7 +82,7 @@ def checksum_u32(words: torch.Tensor) -> torch.Tensor:
         )
     if err:
         raise RuntimeError(f"checksum kernel launch failed: CUDA error {err}")
-    checksum_u32.launches += 1
+    count_launch(checksum_u32)
     return out
 
 

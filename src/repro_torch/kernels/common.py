@@ -9,10 +9,23 @@ CUDA tensor to the plain version.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Sequence
 
 import numpy as np
 import torch
+
+# One lock for every wrapper's launch count: several managers may stage
+# from several threads at once, and ``launches += 1`` is a
+# read-modify-write that could lose a count between them.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper: Any) -> None:
+    """Add one to ``wrapper.launches``; a wrapper calls this where it has
+    launched its kernel, and nowhere else."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def on_cpu(tensors: Sequence[torch.Tensor]) -> bool:

@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import check_operand, on_cpu
+from repro_torch.kernels.common import check_operand, count_launch, on_cpu
 
 # words per group in the plain version (bounds its temporaries)
 _PLAIN_GROUP_WORDS = 1 << 26
@@ -70,7 +70,7 @@ def xor_delta(
         )
     if err:
         raise RuntimeError(f"xor_delta kernel launch failed: CUDA error {err}")
-    xor_delta.launches += 1
+    count_launch(xor_delta)
     return delta, count
 
 

@@ -21,7 +21,13 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.checksum.ref import IDX_MOD
-from repro_torch.kernels.common import check_operand, int32_bits, on_cpu, u32_numpy
+from repro_torch.kernels.common import (
+    check_operand,
+    count_launch,
+    int32_bits,
+    on_cpu,
+    u32_numpy,
+)
 
 TILE = 8 * 128            # words per (8, 128) tile of the reference kernel
 CHUNK_ALIGN = TILE * 4    # bytes per tile; chunk_size must be a multiple
@@ -115,7 +121,7 @@ def fused_precodec(
         )
     if err:
         raise RuntimeError(f"fused_precodec kernel launch failed: CUDA error {err}")
-    fused_precodec.launches += 1
+    count_launch(fused_precodec)
     return delta, meta
 
 

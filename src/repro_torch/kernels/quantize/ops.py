@@ -19,7 +19,12 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import check_operand, on_cpu, pad_to_multiple
+from repro_torch.kernels.common import (
+    check_operand,
+    count_launch,
+    on_cpu,
+    pad_to_multiple,
+)
 
 ROWS = 32     # blocks per tile of the reference kernel
 BLOCK = 128   # values per quantization block
@@ -77,7 +82,7 @@ def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         )
     if err:
         raise RuntimeError(f"quantize kernel launch failed: CUDA error {err}")
-    quantize.launches += 1
+    count_launch(quantize)
     return q, s
 
 
@@ -129,7 +134,7 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, *, n: int) -> torch.Tensor:
         )
     if err:
         raise RuntimeError(f"dequantize kernel launch failed: CUDA error {err}")
-    dequantize.launches += 1
+    count_launch(dequantize)
     return out
 
 

@@ -117,15 +117,15 @@ class ServeFleet:
         cfg: FleetConfig = FleetConfig(),
         sharding_fn: Optional[Callable[[str, Any], Any]] = None,
     ) -> "ServeFleet":
-        """Build a fleet that serves one *tenant* of a control plane.
+        """Build a fleet that serves one *tenant* of a
+        :class:`~repro_torch.control.ControlPlane`.
 
         The manager handle is resolved through the plane's registry
         (``plane.manager(job)``) and the hot-swap follower subscribes
         via ``plane.subscribe(job, ...)``: the fleet never owns a
         private manager, so the tenant's quotas, shared breaker state
         and admission budget all apply to the serving path's reads and
-        the training path's flushes alike.  The plane is duck-typed (the
-        control plane itself is ported with ROADMAP Queue 1 item 6)."""
+        the training path's flushes alike."""
         fleet = cls(
             model,
             plane.manager(job),

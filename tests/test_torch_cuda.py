@@ -192,6 +192,47 @@ def test_device_round_trip(cuda, tmp_path, precodec):
     mgr.close()
 
 
+def test_two_tenants_stage_at_once_on_the_card(cuda, tmp_path):
+    """Two managers of one control plane stage and save from two threads
+    at once: each restores its own state, and no launch count is lost."""
+    import threading
+
+    from repro_torch.control import ControlPlane
+
+    cp = ControlPlane(str(tmp_path), device="cuda", max_pending_flushes=2)
+    mgrs = [cp.register_job(f"job{i}", theta_like(2, 2), codec="zstd+delta",
+                            chunk_size=4096, device_precodec=True) for i in range(2)]
+    states = [{"w": torch.from_numpy(np.random.default_rng(i).standard_normal((256, 300))
+                                     .astype(np.float32)).cuda(),
+               "step": torch.tensor(i, dtype=torch.int32, device="cuda")} for i in range(2)]
+    copies = [{n: t.cpu().clone() for n, t in flatten_with_names(st)[0]} for st in states]
+    launches = fused_precodec.launches
+    barrier = threading.Barrier(2)
+    errors = []
+
+    def run(mgr, state):
+        try:
+            barrier.wait()
+            mgr.stage(1, state)
+            mgr.save(1, state)
+            mgr.wait()
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=a) for a in zip(mgrs, states)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == [] and all(not m.flush_errors for m in mgrs)
+    assert fused_precodec.launches == launches + 2
+    for mgr, state, copy in zip(mgrs, states, copies):
+        _, tree = mgr.restore(state, step=1)
+        for n, t in flatten_with_names(tree)[0]:
+            assert t.device.type == "cuda" and torch.equal(t.cpu(), copy[n]), n
+    cp.close()
+
+
 def _smoke(compute="float32"):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import get_model

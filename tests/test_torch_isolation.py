@@ -56,6 +56,23 @@ def test_cuda_manager_without_a_gpu_raises(tmp_path):
         CheckpointManager(CheckpointConfig(root=str(tmp_path), cluster=theta_like(2, 2)))
 
 
+def test_cuda_control_plane_without_a_gpu_raises(tmp_path):
+    """The plane's tenants run on the card unless the caller passes
+    ``device="cpu"``: without a GPU, registering a tenant raises and
+    leaves no record behind."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.control import ControlPlane
+    from repro_torch.core import theta_like
+
+    cp = ControlPlane(str(tmp_path), flush_bw_cap=1 << 20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cp.register_job("job", theta_like(2, 2), codec="none")
+    assert cp.jobs() == [] and cp.limiter.tenants() == []
+    assert not (tmp_path / "control" / "registry.json").exists()
+    cp.close()
+
+
 def test_cuda_tensor_never_takes_the_plain_path():
     """Without a card the wrappers cannot be handed a CUDA tensor at all;
     on a meta tensor (neither CPU nor CUDA) they raise."""

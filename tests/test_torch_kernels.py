@@ -264,3 +264,57 @@ def test_port_quantize_ref_is_the_reference():
     blocks = np.pad(x, (0, (-len(x)) % 4096)).reshape(-1, 128)
     for a, b in zip(port_quantize_ref(blocks), quantize_ref(blocks)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_launch_counts_are_exact_under_threads():
+    """Several managers stage from several threads at once: no launch
+    count may be lost between them, and the plain path counts nothing.
+    Every wrapper counts through the locked ``count_launch`` and nowhere
+    else; the card-only ``test_two_tenants_stage_at_once_on_the_card``
+    (tests/test_torch_cuda.py) checks the counts of real launches."""
+    import inspect
+    import re
+    import threading
+
+    from repro_torch.kernels import checksum_u32, xor_delta
+    from repro_torch.kernels.common import count_launch
+
+    wrappers = [fused_precodec, quantize, dequantize, checksum_u32, xor_delta]
+    for w in wrappers:
+        module = inspect.getsource(inspect.getmodule(w))
+        assert re.findall(r"^\s*count_launch\((\w+)\)", module, re.M).count(w.__name__) == 1
+        assert not re.search(r"\.launches\s*\+=", module), w.__name__
+    before = [w.launches for w in wrappers]
+    words = torch.arange(4096, dtype=torch.int32)
+    values = torch.linspace(-3, 3, 4096)
+    q, s = quantize(values)
+    n_threads, n_calls = 8, 2000
+    barrier = threading.Barrier(n_threads)
+
+    def plain_calls():
+        barrier.wait()
+        for _ in range(20):
+            fused_precodec(words, words, chunk_words=1024)
+            quantize(values)
+            dequantize(q, s, n=4096)
+            checksum_u32(words)
+            xor_delta(words, words)
+
+    def launches():
+        barrier.wait()
+        for _ in range(n_calls):
+            for w in wrappers:
+                count_launch(w)
+
+    for target in (plain_calls, launches):
+        threads = [threading.Thread(target=target) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if target is plain_calls:
+            assert [w.launches for w in wrappers] == before
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [n_threads * n_calls] * len(wrappers)
+    for w, b in zip(wrappers, before):
+        w.launches = b
