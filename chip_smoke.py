@@ -8,8 +8,8 @@ sources in this checkout (``src/repro_torch/kernels/*/csrc/*.cu``, with
 ``nvcc``, all started together, into ``build/repro_torch/``).
 
 Phase 1 holds each kernel against its plain PyTorch version on the card,
-at the shapes a full-depth train state gives it (those of phases 4 and
-6) and on constructed edge cases, and
+at the shapes a full-depth train state gives it (those of phase 4) and
+on constructed edge cases, and
 times both (and, for dequantize, the one PyTorch call that computes the
 same function). Equality is exact (tolerance zero).
 
@@ -77,24 +77,57 @@ snapshot's stage, window, flush and restore times, and peak device
 memory. ``--layers`` never cuts phase 5.
 
 Phase 6 is the control plane (``repro_torch.control``): two training
-jobs, each holding a full-width, full-depth train state on the card
-(its own seed), checkpoint through one ``ControlPlane`` over one PFS
-root (budget of 2 pending flushes, a bandwidth cap of a quarter of the rate
-at which phase 2's anchor flushed unthrottled). ``finetune``
-(priority 1) saves its anchor, whose flush runs under the cap, then a
-top-4-layer step 2 that queues behind it; ``pretrain`` (priority 4)
-saves its anchor, which preempts finetune's queued step 2 (parked as
-``flush_partial``); both anchors flush through the fair-share limiter at
-4:1; finetune's step 2 drains to ``flush_done`` once the budget frees.
-Checks: one preemption, the budget never above 2, no flush errors, the
-aggregate never faster than the cap, pretrain's step 1 and finetune's
-step 2 restored on 3x1 with L1 dropped equal to their host copies and
-pre-stage digests, and a fresh plane recovering both jobs from
-``registry.json``. It prints each tenant's saves and flushes, the bytes
-each flushed while both were backlogged, ``simulate_flush_shared``'s
-prices, the restores, peak device memory and free disk. Everything
-under the run's temporary directory (the roots that phases 4 and 5
-leave) is removed first. ``--layers`` never cuts phase 6.
+jobs, each holding a full-width train state on the card (its own seed),
+cut to 12 of the 24 layers (``PHASE6_LAYERS``), checkpoint through one
+``ControlPlane`` over one PFS root (budget of 2 pending flushes, a
+bandwidth cap of a quarter of the rate at which phase 2's anchor flushed
+unthrottled). ``finetune`` (priority 1) saves its anchor, whose flush
+runs under the cap, then a top-4-layer step 2 that queues behind it;
+``pretrain`` (priority 4) saves its anchor, which preempts finetune's
+queued step 2 (parked as ``flush_partial``); both anchors flush through
+the fair-share limiter at 4:1; finetune's step 2 drains to
+``flush_done`` once the budget frees. Checks: one preemption, the budget
+never above 2, no flush errors, the aggregate never faster than the cap,
+pretrain's step 1 and finetune's step 2 restored on 3x1 with L1 dropped
+equal to their host copies and pre-stage digests, and a fresh plane
+recovering both jobs from ``registry.json``. It prints each tenant's
+saves and flushes, the bytes each flushed while both were backlogged,
+``simulate_flush_shared``'s prices, the restores, peak device memory and
+free disk. Everything under the run's temporary directory (the roots
+that phases 4 and 5 leave) is removed first. ``--layers`` never cuts
+phase 6.
+
+Phase 7 runs the MoE and VLM families of the port at published widths,
+with everything under the run's temporary directory removed first.
+qwen2-moe-a2.7b (``src/repro/configs/qwen2_moe_a2_7b.py``: d_model
+2048, 16/16 heads, 60 routed experts top-4 of width 1408, 4 shared of
+width 5632, vocab 151936, QKV bias, float32 params, bf16 compute) is cut
+to one of its 24 layers (a 14.3 GB train state; a pre-codec stage holds
+about four times its state): one step at batch 2 x 256 against the
+port's CPU (also the aux loss, and every router selection that flips
+between the two must be a near tie, ``ROUTER_TIE_TOL``); run A trains
+steps 1-3 at batch 4 x 2048 (the trainer's deterministic ``run``)
+saving steps 2 (staged beside step 3) and 3 with the device pre-codec,
+each as an anchor; run B restores step 2 from the PFS with L1 dropped and
+replays step 3, which must equal run A's byte for byte, digest for
+digest, cursor for cursor; prefill of 2 x 2048 and 16 decode steps from
+run B's params against the CPU (``SERVE_REF_TOL`` on every step routed
+alike on both sides); profiles of one clean step and of one MoE FFN
+(dispatch and combine against the expert products).
+llava-next-mistral-7b (``src/repro/configs/llava_next_mistral_7b.py``:
+d_model 4096, 32/8 heads, d_ff 14336, vocab 32000, 576 patches, bf16
+params and moments) is cut to two of its 32 layers (a 4.19 GB train
+state): one step of 576 patches and 32 text tokens against the CPU,
+prefill with patches and 16 decode steps against the CPU, then the
+trainer takes one step of 4 x (576 patches + 1,472 text tokens) and
+saves it with the device pre-codec; restored from the PFS on 3x1 with L1
+dropped it must equal its host copy and pre-stage digests. ``--layers``
+never cuts phase 7.
+
+After phases 2 and 4-6, and within phase 7, the pinned host blocks that
+PyTorch's caching host allocator keeps (the pre-codec's D2H buffers) go
+back to the system (``release_host_cache``): kept, they filled the
+host's 96 GiB in phase 7.
 
 Prints the card's name and power limit, per-step numbers, one JSON line
 of kernels, and last ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -106,6 +139,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -113,6 +147,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -128,6 +163,9 @@ VOCAB, D_MODEL, D_FF, N_LAYERS = 151936, 1024, 2816, 24
 # 794.8-948.9 s on one H100 with phase 2 at 24 layers (PERF.md), too
 # close to the 1,200 s a run may take
 PHASE2_LAYERS = 12
+# phase 6's depth: phase 7 adds about 225 s, and the script must end
+# within 1,200 s (PERF.md)
+PHASE6_LAYERS = 12
 LAYER_SHAPES = {
     "wq": (D_MODEL, D_MODEL), "wk": (D_MODEL, D_MODEL),
     "wv": (D_MODEL, D_MODEL), "wo": (D_MODEL, D_MODEL),
@@ -930,14 +968,14 @@ KERNEL_CLASSES = [
 ]
 
 
-def profile_train_step(cfg, tcfg, state, data):
+def profile_train_step(cfg, tcfg, state, data, tag="phase4"):
     """One more train step on ``state`` under :func:`profile_device`."""
     from repro_torch.models import get_model
     from repro_torch.train import build_train_step
 
     step = build_train_step(get_model(cfg), tcfg)
     batch = data.next()
-    return profile_device(lambda: step(state, batch), "phase4", "one clean step")
+    return profile_device(lambda: step(state, batch), tag, "one clean step")
 
 
 def profile_device(fn, tag, what):
@@ -996,71 +1034,182 @@ def profile_device(fn, tag, what):
 # (2^-8 = 0.0039) in a different order on each side, so each leaf's
 # gradient (mu = (1 - beta1) * clipped g) may differ by a few of those
 # in norm; a wrong gradient (remat, the query chunks, the embedding's
-# scatter-add) is off by far more
-REF_STEP_TOL = {"loss": 1e-3, "grad_norm": 2e-2, "mu": 2e-2, "update_norm": 2e-2}
+# scatter-add) is off by far more. The MoE aux loss: the router reads the
+# bf16-rounded FFN input (in float32), so its probabilities differ by
+# about 2^-8 relative, and each moved slot shifts 1/(B*S) of one expert's
+# density: 1e-2 relative.
+REF_STEP_TOL = {"loss": 1e-3, "aux": 1e-2, "grad_norm": 2e-2, "mu": 2e-2, "update_norm": 2e-2}
+# the most that a router logit may trail the CPU's k-th largest where the
+# card chose that expert and the CPU did not (a flipped slot): bf16
+# rounding of the FFN input moves a logit of unit scale by about 2.5e-3;
+# a wrong selection trails by order 1
+ROUTER_TIE_TOL = 0.05
+# the routed experts' leaves (and the router's): their mu is held to
+# REF_STEP_TOL["mu"] plus what the moved slots account for
+ROUTED_LEAVES = ("['router']", "['w_gate']", "['w_up']", "['w_down']")
 
 
-def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batch=2):
-    """One train step of ``cfg`` at its full widths and ``seq_len``,
-    depth cut to ``n_layers``, from the same state (from a seed) on the
-    same batch, on the card and on the CPU through the port's own step:
-    loss and grad_norm, and per leaf mu and the update's norm, within
-    ``REF_STEP_TOL`` (relative); lr equal."""
-    import numpy as np
+@contextmanager
+def moe_probe():
+    """While on, record each MoE FFN call's routing (the router logits,
+    ``sel`` and ``keep``, on the host) and aux loss; yields the two lists.
+    Under remat, backward's recomputation records again (the routing, and
+    the aux loss where the recomputation runs that far): a step's first
+    records are its forward's."""
+    from repro_torch.models import moe, transformer
+
+    routes, auxes = [], []
+    route, ffn = moe.route, transformer.moe_ffn
+
+    def recording_route(logits, m, c):
+        out = route(logits, m, c)
+        routes.append((logits.detach().float().cpu(), out[0].cpu(), out[2].cpu()))
+        return out
+
+    def recording_ffn(x, p, m):
+        out, aux = ffn(x, p, m)
+        auxes.append(float(aux.detach()))
+        return out, aux
+
+    moe.route, transformer.moe_ffn = recording_route, recording_ffn
+    try:
+        yield routes, auxes
+    finally:
+        moe.route, transformer.moe_ffn = route, ffn
+
+
+def route_diff(card, cpu):
+    """The card's routing against the CPU's, call by call: slots, kept
+    slots (CPU), flipped slots (an expert the card chose and the CPU did
+    not), slots whose drop was decided the other way, the largest gap by
+    which a flipped expert's CPU logit trails the CPU's k-th largest, and
+    per call a (B, S) mask of the tokens routed otherwise."""
+    import torch
+
+    r = dict(slots=0, kept=0, flipped=0, keep_diff=0, max_gap=0.0)
+    differ = []
+    for (_, g_sel, g_keep), (logits, c_sel, c_keep) in zip(card, cpu):
+        def table(sel, keep):      # 1: chosen and kept, 2: chosen and dropped
+            t = torch.zeros(logits.shape, dtype=torch.int8)
+            return t.scatter_(-1, sel, torch.where(keep, 1, 2).to(torch.int8))
+
+        tg, tc = table(g_sel, g_keep), table(c_sel, c_keep)
+        moved = (tg > 0) & (tc == 0)
+        r["slots"] += c_sel.numel()
+        r["kept"] += int(c_keep.sum())
+        r["flipped"] += int(moved.sum())
+        r["keep_diff"] += int(((tg > 0) & (tc > 0) & (tg != tc)).sum())
+        if moved.any():
+            kth = logits.gather(-1, c_sel).min(-1, keepdim=True).values
+            r["max_gap"] = max(r["max_gap"], float((kth - logits)[moved].max()))
+        differ.append((tg != tc).any(-1))
+    return r, differ
+
+
+def moved_slots_tol(r):
+    """Each moved slot (flipped, or dropped on one side only) moves one
+    token's share of a routed expert's gradient, and of the router's, to
+    another: about sqrt(2 * moved / kept) of a leaf summed over the kept
+    slots' roughly independent shares. Twice that is allowed."""
+    return 2 * math.sqrt(2 * (r["flipped"] + r["keep_diff"]) / max(r["kept"], 1))
+
+
+def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batch=2,
+                          tag="phase4"):
+    """One train step of ``cfg`` at its full widths and ``seq_len`` (text
+    tokens; a VLM batch's patches come first), depth cut to ``n_layers``,
+    from the same state (from a seed) on the same batch, on the card and
+    on the CPU through the port's own step: loss and grad_norm, and per
+    leaf mu and the update's norm, within ``REF_STEP_TOL`` (relative); lr
+    equal. For a MoE model also the aux loss, and the router's
+    selections: every flipped slot must be a near tie (``ROUTER_TIE_TOL``),
+    and the routed experts' and the router's mu are held to
+    ``REF_STEP_TOL["mu"]`` plus :func:`moved_slots_tol`. The card's state
+    stays on the card; leaves are compared there one at a time."""
     import torch
 
     from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.models import get_model
+    from repro_torch.models.transformer import Transformer
     from repro_torch.train import build_train_step, init_train_state
-    from repro_torch.utils.convert import train_state_from_numpy, tree_to_numpy
-    from repro_torch.utils.treelib import flatten_with_names
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.utils.convert import copy_tree_
 
     cfg = cfg.replace(n_layers=n_layers)
     model = get_model(cfg)
-    start = tree_to_numpy(init_train_state(model, torch.Generator().manual_seed(SEED), tcfg, "cpu"))
-    batch = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                                       global_batch=global_batch, seed=SEED), device="cpu").next()
+    cpu_state = init_train_state(model, torch.Generator().manual_seed(SEED), tcfg, "cpu")
+    module = Transformer(cfg, device=DEVICE)
+    params = copy_tree_(module.state_tree(), cpu_state["params"])
+    card_state = {"params": params, "opt": init_opt_state(params, tcfg.opt),
+                  "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+    start = [p.detach().clone() for _, p in leaves(params)]
+    batch = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch, seed=SEED,
+        n_patches=cfg.n_patches, d_model=cfg.d_model, family=cfg.family), device="cpu").next()
     step = build_train_step(model, tcfg)
     out = {}
-    for dev in (DEVICE, "cpu"):
-        state = train_state_from_numpy(start, model, dev)
-        sync()
-        t0 = time.perf_counter()
-        state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
-        metrics = {k: float(v) for k, v in m.items()}
-        secs = time.perf_counter() - t0
-        out[dev] = (tree_to_numpy(state), metrics, secs)
-        del state, m
-    (g, gm, g_s), (c, cm, c_s) = out[DEVICE], out["cpu"]
+    for dev, state in ((DEVICE, card_state), ("cpu", cpu_state)):
+        with moe_probe() as (routes, auxes):
+            sync()
+            t0 = time.perf_counter()
+            _, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+            metrics = {k: float(v) for k, v in m.items()}
+            secs = time.perf_counter() - t0
+        if cfg.moe is not None:
+            metrics["aux"] = sum(auxes[:n_layers])      # the forward's calls
+        out[dev] = (metrics, secs, routes[:n_layers])
+    (gm, g_s, g_routes), (cm, c_s, c_routes) = out[DEVICE], out["cpu"]
 
     def rel(x, y):
-        return float(np.linalg.norm(x.astype(np.float64) - y) / max(np.linalg.norm(y), 1e-30))
+        return float((x - y).norm() / max(float(y.norm()), 1e-30))
 
-    err = {k: abs(gm[k] - cm[k]) / abs(cm[k]) for k in ("loss", "grad_norm")}
+    tol = dict(REF_STEP_TOL)
+    keys = ("loss", "grad_norm") + (("aux",) if cfg.moe is not None else ())
+    err = {k: abs(gm[k] - cm[k]) / abs(cm[k]) for k in keys}
+    routing = None
+    if cfg.moe is not None:
+        routing, _ = route_diff(g_routes, c_routes)
+        tol["mu_routed"] = tol["mu"] + moved_slots_tol(routing)
     mu, upd = {}, {}
-    for (n, x), (_, y), (_, p0) in zip(flatten_with_names(g["params"])[0],
-                                      flatten_with_names(c["params"])[0],
-                                      flatten_with_names(start["params"])[0]):
-        nx = np.linalg.norm(x.astype(np.float64) - p0)
-        ny = np.linalg.norm(y.astype(np.float64) - p0)
-        upd[n] = float(abs(nx - ny) / ny)
-    for (n, x), (_, y) in zip(flatten_with_names(g["opt"]["mu"])[0],
-                              flatten_with_names(c["opt"]["mu"])[0]):
-        mu[n] = rel(x, y)
-    err["mu"], err["update_norm"] = max(mu.values()), max(upd.values())
+    with torch.no_grad():
+        for (n, x), (_, y), x0 in zip(leaves(card_state["params"]),
+                                      leaves(cpu_state["params"]), start):
+            x0 = x0.double()
+            nx = float((x.double() - x0).norm())
+            ny = float((y.to(DEVICE).double() - x0).norm())
+            upd[n] = abs(nx - ny) / ny
+        for (n, x), (_, y) in zip(leaves(card_state["opt"]["mu"]),
+                                  leaves(cpu_state["opt"]["mu"])):
+            mu[n] = rel(x.double(), y.to(DEVICE).double())
+    routed = {n for n in mu if "['moe']" in n and n.endswith(ROUTED_LEAVES)}
+    err["mu"] = max(v for n, v in mu.items() if n not in routed)
+    if routed:
+        err["mu_routed"] = max(mu[n] for n in routed)
+    err["update_norm"] = max(upd.values())
+    del card_state, cpu_state, module, params, start
     row = dict(n_layers=n_layers, batch=global_batch, seq_len=seq_len, metrics=gm,
-               cpu_metrics=cm, step_s=g_s, cpu_step_s=c_s, err=err, tol=REF_STEP_TOL,
-               mu_rel=mu, update_norm_rel=upd)
-    report["phase4_reference_step"] = row
-    log(f"phase4 reference step ({cfg.name} widths, {n_layers} layers, batch "
+               cpu_metrics=cm, step_s=g_s, cpu_step_s=c_s, err=err, tol=tol,
+               mu_rel=mu, update_norm_rel=upd, routing=routing)
+    report[f"{tag}_reference_step".replace(" ", "_")] = row
+    log(f"{tag} reference step ({cfg.name} widths, {n_layers} layers, batch "
         f"{global_batch}x{seq_len}): card {gm} in {g_s:.3f} s, cpu {cm} in {c_s:.3f} s")
-    log("phase4 reference step relative errors: "
-        + " ".join(f"{k}={v:.3e} (tol {REF_STEP_TOL[k]:g})" for k, v in err.items())
+    if routing is not None:
+        log(f"{tag} reference step routing, card against cpu: {routing['flipped']} of "
+            f"{routing['slots']} (token, k) selections differ (largest gap "
+            f"{routing['max_gap']:.3e}, tol {ROUTER_TIE_TOL:g}); {routing['keep_diff']} slots "
+            f"dropped on one side only; {routing['kept']} kept (cpu)")
+    log(f"{tag} reference step relative errors: "
+        + " ".join(f"{k}={v:.3e} (tol {tol[k]:.3g})" for k, v in err.items())
         + f"; worst mu leaf {max(mu, key=mu.get)}")
-    bad = {k: v for k, v in err.items() if not v <= REF_STEP_TOL[k]}
+    bad = {k: v for k, v in err.items() if not v <= tol[k]}
+    if routing is not None and not routing["max_gap"] <= ROUTER_TIE_TOL:
+        bad["router_gap"] = routing["max_gap"]
     if bad or abs(gm["lr"] - cm["lr"]) > 1e-6 * cm["lr"]:
-        raise AssertionError(f"phase4: the card's step differs from the CPU's: {bad}, "
+        raise AssertionError(f"{tag}: the card's step differs from the CPU's: {bad}, "
                              f"lr {gm['lr']} vs {cm['lr']}")
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return row
 
 
@@ -1222,58 +1371,103 @@ SERVE_CACHE_BYTES = 6 << 30
 SWAP_DEADLINE_S = 300.0
 
 
-def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16):
-    """Prefill of ``batch`` x ``prompt`` tokens then ``steps`` greedy
-    decode steps of ``cfg`` at its full widths, depth cut to
-    ``n_layers``, from one set of weights (from a seed), on the card and
-    through the port's CPU, the CPU teacher-forced on the card's tokens:
-    every step's logits and the cache after prefill and at the end within
-    ``SERVE_REF_TOL``."""
+# the most steps of phase5_reference's teacher-forced serving that a MoE
+# model may route otherwise on the two sides (a near tie flipped, or a
+# drop decided the other way, for a token whose logits are held)
+SERVE_ROUTED_OTHERWISE_MAX = 0.25
+
+
+def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16, params=None,
+                     tag="phase5"):
+    """Prefill of ``batch`` x ``prompt`` tokens (a VLM's patch embeddings,
+    from a seed, first) then ``steps`` greedy decode steps of ``cfg`` at
+    its full widths, depth cut to ``n_layers``, from one set of weights
+    (``params``, a tree of tensors on any device, or else drawn from a
+    seed), on the card and through the port's CPU, the CPU teacher-forced
+    on the card's tokens: every step's logits and the cache after prefill
+    and at the end within ``SERVE_REF_TOL``. For a MoE model, a step
+    whose held token (prefill: each row's last; decode: each row's) was
+    routed otherwise on the two sides is reported and not held; every
+    flipped slot must be a near tie (``ROUTER_TIE_TOL``), and at most
+    ``SERVE_ROUTED_OTHERWISE_MAX`` of the steps may be routed otherwise."""
     import numpy as np
     import torch
 
     from repro_torch.models import get_model
-    from repro_torch.utils.convert import tree_from_numpy, tree_to_numpy
+    from repro_torch.utils.treelib import tree_map
 
     cfg = cfg.replace(n_layers=n_layers)
     model = get_model(cfg)
-    host = tree_to_numpy(model.init(torch.Generator().manual_seed(SEED), "cpu").state_tree())
-    prompt_np = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, prompt))
+    if params is None:
+        params = model.init(torch.Generator().manual_seed(SEED), "cpu").state_tree()
+    r = np.random.default_rng(SEED)
+    prompt_np = r.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    inputs = {"tokens": torch.as_tensor(prompt_np)}
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.as_tensor(
+            r.standard_normal((batch, cfg.n_patches, cfg.d_model), dtype=np.float32))
+    s_max = cfg.n_patches * (cfg.family == "vlm") + prompt + steps
     forced = None
     out = {}
     for dev in (DEVICE, "cpu"):
-        params = tree_from_numpy(host, dev)
+        dev_params = tree_map(lambda x: x.detach().to(dev), params)
         sync()
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            tokens = torch.as_tensor(prompt_np.astype(np.int32), device=dev)
-            cache, lg = model.prefill(params, {"tokens": tokens}, s_max=prompt + steps)
+        with torch.inference_mode(), moe_probe() as (routes, _):
+            cache, lg = model.prefill(dev_params, {k: v.to(dev) for k, v in inputs.items()},
+                                      s_max=s_max)
             logits, caches, toks = [lg.float().cpu()], [[x.float().cpu() for x in cache[:2]]], []
             for i in range(steps):
                 tok = lg.argmax(-1)[:, None].to(torch.int32) if forced is None else \
                     forced[i].to(dev)
                 toks.append(tok.cpu())
-                lg, cache = model.decode_step(params, cache, tok)
+                lg, cache = model.decode_step(dev_params, cache, tok)
                 logits.append(lg.float().cpu())
             caches.append([x.float().cpu() for x in cache[:2]])
         sync()
-        out[dev] = (logits, caches, time.perf_counter() - t0)
+        out[dev] = (logits, caches, time.perf_counter() - t0, routes)
         forced = toks       # the CPU decodes the card's tokens
-        del params, cache
-    (g_logits, g_caches, g_s), (c_logits, c_caches, c_s) = out[DEVICE], out["cpu"]
+        del dev_params, cache
+    (g_logits, g_caches, g_s, g_routes), (c_logits, c_caches, c_s, c_routes) = \
+        out[DEVICE], out["cpu"]
     logit_err = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_logits, c_logits)]
     cache_err = [float((a - b).norm() / b.norm())
                  for ga, ca in zip(g_caches, c_caches) for a, b in zip(ga, ca)]
+    held = list(range(len(logit_err)))
+    routing = None
+    if cfg.moe is not None:
+        routing, differ = route_diff(g_routes, c_routes)
+        # step i's calls: one a layer; its held tokens are the last of
+        # each row, and every token of an earlier layer feeds them
+        per_step = [differ[i * n_layers:(i + 1) * n_layers] for i in range(steps + 1)]
+        otherwise = [i for i, d in enumerate(per_step)
+                     if any(bool(x.any()) for x in d[:-1]) or bool(d[-1][:, -1].any())]
+        held = [i for i in held if i not in otherwise]
+        routing.update(steps_routed_otherwise=otherwise,
+                       their_logits_err=[logit_err[i] for i in otherwise])
+    worst = max(logit_err[i] for i in held)
     row = dict(n_layers=n_layers, batch=batch, prompt=prompt, steps=steps, card_s=g_s,
-               cpu_s=c_s, logits_err=logit_err, cache_err=cache_err, tol=SERVE_REF_TOL)
-    report["phase5_reference"] = row
-    log(f"phase5 reference ({cfg.name} widths, {n_layers} layers, batch {batch}x{prompt}, "
+               cpu_s=c_s, logits_err=logit_err, cache_err=cache_err, tol=SERVE_REF_TOL,
+               held_steps=held, routing=routing)
+    report[f"{tag}_reference".replace(" ", "_")] = row
+    log(f"{tag} reference ({cfg.name} widths, {n_layers} layers, batch {batch}x{prompt}, "
         f"{steps} decode steps teacher-forced): card {g_s:.3f} s, cpu {c_s:.3f} s; "
-        f"worst logits err {max(logit_err):.3e} of max|logit| (tol {SERVE_REF_TOL['logits']:g}), "
-        f"worst cache err {max(cache_err):.3e} relative (tol {SERVE_REF_TOL['cache']:g})")
-    if max(logit_err) > SERVE_REF_TOL["logits"] or max(cache_err) > SERVE_REF_TOL["cache"]:
-        raise AssertionError(f"phase5: the card's serving differs from the CPU's: "
-                             f"logits {logit_err}, cache {cache_err}")
+        f"worst logits err {worst:.3e} of max|logit| over {len(held)} held steps "
+        f"(tol {SERVE_REF_TOL['logits']:g}), worst cache err {max(cache_err):.3e} relative "
+        f"(tol {SERVE_REF_TOL['cache']:g})")
+    bad = worst > SERVE_REF_TOL["logits"] or max(cache_err) > SERVE_REF_TOL["cache"]
+    if routing is not None:
+        log(f"{tag} reference routing, card against cpu: {routing['flipped']} of "
+            f"{routing['slots']} (token, k) selections differ (largest gap "
+            f"{routing['max_gap']:.3e}, tol {ROUTER_TIE_TOL:g}); {routing['keep_diff']} slots "
+            f"dropped on one side only; steps routed otherwise for a held token "
+            f"{routing['steps_routed_otherwise']} (not held; logits err "
+            f"{[round(e, 4) for e in routing['their_logits_err']]})")
+        bad = bad or not routing["max_gap"] <= ROUTER_TIE_TOL or \
+            len(routing["steps_routed_otherwise"]) > SERVE_ROUTED_OTHERWISE_MAX * (steps + 1)
+    if bad:
+        raise AssertionError(f"{tag}: the card's serving differs from the CPU's: "
+                             f"logits {logit_err}, cache {cache_err}, routing {routing}")
     return row
 
 
@@ -1577,7 +1771,7 @@ def bytes_between(events, t0, t1):
     return sum(n for t, n in events if t0 <= t <= t1)
 
 
-def phase6(tmp, pool, report, *, n_layers=N_LAYERS):  # n_layers: CPU rehearsal only
+def phase6(tmp, pool, report, *, n_layers=PHASE6_LAYERS):
     """Two training jobs checkpoint through one control plane over one
     PFS root, on the card: ``pretrain`` (priority 4) and ``finetune``
     (priority 1) each hold a full train state, share a pending-flush
@@ -1785,6 +1979,360 @@ def phase6(tmp, pool, report, *, n_layers=N_LAYERS):  # n_layers: CPU rehearsal 
     return launches
 
 
+# -- phase 7 --------------------------------------------------------------
+
+# qwen2-moe-a2.7b (src/repro/configs/qwen2_moe_a2_7b.py) at its published
+# widths, cut to one of its 24 layers: a layer's train state is 6.8 GB and
+# the rest (embedding, output) 7.5 GB, and a device pre-codec stage holds
+# the state's word stream, its zero base and its delta beside the state
+# (about 4x the state: 57 GB at one layer, over 80 GB at two)
+MOE_LAYERS = 1
+# llava-next-mistral-7b (src/repro/configs/llava_next_mistral_7b.py) cut to
+# two of its 32 layers: 698,372,096 bf16 parameters, a 4.19 GB train state
+VLM_LAYERS = 2
+
+
+def host_available_gb():
+    """MemAvailable of the host, in GB (None where /proc has no meminfo)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        return None
+    return None
+
+
+def release_host_cache(what):
+    """Hand the pinned host blocks that PyTorch's caching host allocator
+    keeps after use (each pre-codec stage's D2H buffer: 8 GiB for a
+    qwen1.5-0.5b state, 16 GiB for the MoE state) back to the system,
+    and log the host's MemAvailable and the pinned bytes held before."""
+    import torch
+
+    held = None
+    stats = getattr(torch.cuda.memory, "host_memory_stats", None)
+    if DEVICE == "cuda" and stats is not None:
+        held = stats().get("allocated_bytes.current")
+    empty = getattr(getattr(torch, "accelerator", None), "empty_host_cache", None) or \
+        getattr(torch._C, "_host_emptyCache", None)
+    if DEVICE == "cuda" and empty is not None:
+        empty()
+    log(f"host memory {what}: pinned bytes held {held}, released "
+        f"{'yes' if DEVICE == 'cuda' and empty is not None else 'no'}; "
+        f"MemAvailable {host_available_gb():.1f} GB")
+
+
+def profile_moe_ffn(cfg, layer_params, batch, seq_len):
+    """The MoE FFN of one layer, forward and backward at the trainer's
+    shapes (input from a seed, the given layer's weights), under
+    :func:`profile_device` and deterministic algorithms: the dispatch and
+    combine (the ``index`` class) against the expert products (``matmul``)."""
+    import torch
+
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.models.moe import moe_ffn
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x = torch.randn((batch, seq_len, cfg.d_model), generator=g, device=DEVICE,
+                    dtype=cfg.cdt).requires_grad_()
+    p = {k: v.detach().requires_grad_() for k, v in layer_params.items()}
+
+    def fwd_bwd():
+        out, aux = moe_ffn(x, p, cfg.moe)
+        torch.autograd.grad(out.float().square().mean() + aux, [x, *p.values()])
+
+    with deterministic_algorithms():
+        fwd_bwd()        # warm-up
+        return profile_device(fwd_bwd, "phase7 moe", "one MoE FFN forward and backward")
+
+
+def phase7_moe(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4, ref_kw=None,
+               serve_kw=None):
+    """qwen2-moe-a2.7b through the port's trainer at its published widths
+    (one layer), as phase 4 does for the dense model: run A trains steps
+    1-3 with device pre-codec saves of steps 2 (an anchor, staged after
+    step 2 and saved after step 3) and 3; run B, a fresh model, pipeline
+    and manager on the same root, restores step 2 from the PFS with L1
+    dropped and replays step 3, which must equal run A's byte for byte,
+    digest for digest and cursor for cursor. Before, one step against the
+    port's CPU (:func:`phase4_reference_step`); after, prefill and 16
+    decode steps from run B's params against the CPU
+    (:func:`phase5_reference`), and profiles of one clean step and of one
+    MoE FFN. Returns the kernel launches counted over runs A and B."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CheckpointConfig, theta_like
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import deterministic_algorithms, run
+    from repro_torch.models import get_model
+    from repro_torch.models.moe import capacity
+    from repro_torch.train import OptConfig, TrainConfig, build_train_step
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or get_config("qwen2-moe-a2.7b").replace(n_layers=MOE_LAYERS)
+    m = cfg.moe
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                          global_batch=global_batch, seed=SEED)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=3), remat=True)
+    root = tmp / "moe"
+    # every save an anchor (delta_every=1): the trainer also saves its last
+    # step, 3, and a delta of this state with every chunk dirty took 104.5 s
+    # of window against the anchor's 32.3 s (H100 80GB HBM3, 700 W; PERF.md)
+    ckpt = CheckpointConfig(
+        root=str(root), cluster=theta_like(4, 4), strategy="stripe_aligned",
+        codec="zstd+delta", chunk_size=CHUNK_SIZE, device_precodec=True,
+        precodec="none", delta_every=1, device=DEVICE,
+    )
+    log(f"phase7 moe model: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} experts={m.n_experts} top_k={m.top_k} "
+        f"expert_d_ff={m.expert_d_ff} shared={m.n_shared}x{m.shared_d_ff} "
+        f"vocab={cfg.vocab_size} params={cfg.param_dtype} compute={cfg.compute_dtype} "
+        f"batch={global_batch}x{seq_len} capacity={capacity(m, seq_len)} remat=True")
+
+    def tagged(tag):
+        return lambda line: log(f"phase7 moe {tag} {line}")
+
+    ref = phase4_reference_step(cfg, tcfg, report=report, tag="phase7 moe",
+                                **dict(dict(seq_len=256, n_layers=cfg.n_layers, global_batch=2),
+                                       **(ref_kw or {})))
+    gc.collect()
+    reset_counts()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    host_before = host_available_gb()
+    t0 = time.perf_counter()
+    marks = [0]     # len(auxes) as each step ends: the next step's records start there
+
+    def log_a(line):
+        if line.startswith("step"):
+            marks.append(len(auxes))
+        tagged("A")(line)
+
+    with moe_probe() as (_, auxes):
+        a = run(cfg, data_cfg, tcfg, ckpt, steps=3, ckpt_every=2, device=DEVICE,
+                seed=SEED, log=log_a)
+    run_a_s = time.perf_counter() - t0
+    aux_a = [sum(auxes[i : i + cfg.n_layers]) for i in marks[:-1]]
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    host_after = host_available_gb()
+    if a.flush_errors:
+        raise AssertionError(f"phase7 moe flush errors: {a.flush_errors}")
+    if not np.isfinite(a.losses).all():
+        raise AssertionError(f"phase7 moe loss is not finite: {a.losses}")
+    if read_counts()["fused_precodec"] == 0:
+        raise AssertionError("phase7 moe: fused_precodec was not launched on the trainer's saves")
+    # run A's state stays on the card for the comparison with run B's
+    state_a, digests = a.state, device_digests(a.state)
+    cursor = int(a.data.state_tree()["batch_idx"])
+    losses_a, step_s, saves = a.losses, a.step_s, a.saves
+    del a
+    gc.collect()
+    release_host_cache("after phase 7's run A")
+
+    drop_l1(manager(root, theta_like(4, 4))).close()
+    t0 = time.perf_counter()
+    b = run(cfg, data_cfg, tcfg, ckpt, steps=3, ckpt_every=0, resume=2, device=DEVICE,
+            seed=SEED + 1, log=tagged("B"))
+    run_b_s = time.perf_counter() - t0
+    if b.restored_step != 2 or b.losses != losses_a[2:]:
+        raise AssertionError(f"phase7 moe replay: restored {b.restored_step}, "
+                             f"losses {b.losses} != {losses_a[2:]}")
+    if b.restore_read is None or b.restore_read.bytes_read == 0:
+        raise AssertionError("phase7 moe: run B did not restore step 2 from the PFS")
+    got, want = leaves(b.state), leaves(state_a)
+    if [n for n, _ in got] != [n for n, _ in want]:
+        raise AssertionError("phase7 moe: run B's state has other leaves")
+    for (n, x), (_, y) in zip(got, want):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"phase7 moe: replayed step 3 differs from run A's at {n}")
+    if not np.array_equal(device_digests(b.state), digests):
+        raise AssertionError("phase7 moe: digests of the replayed step 3 differ")
+    if int(b.data.state_tree()["batch_idx"]) != cursor:
+        raise AssertionError("phase7 moe: the replay ends at another batch cursor")
+    launches = read_counts()
+    del state_a, got, want
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    serve = phase5_reference(cfg, report, tag="phase7 moe", params=b.state["params"],
+                             **dict(dict(n_layers=cfg.n_layers, batch=2, prompt=2048, steps=16),
+                                    **(serve_kw or {})))
+    layer0 = {k: v[0] for k, v in b.state["params"]["layers"]["moe"].items()}
+    ffn_profile = profile_moe_ffn(cfg, layer0, global_batch, seq_len)
+    del layer0
+    with deterministic_algorithms():
+        # run B's replayed step is its process's first at these shapes: the
+        # clean step is the next one, then one more under the profiler
+        step = build_train_step(get_model(cfg), tcfg)
+        batch = b.data.next()
+        sync()
+        t0 = time.perf_counter()
+        step(b.state, batch)
+        sync()
+        clean_s = time.perf_counter() - t0
+        profile = profile_train_step(cfg, tcfg, b.state, b.data, "phase7 moe")
+    replay_s, restore2_s = b.step_s, b.restore_s
+    del b
+    gc.collect()
+
+    ms = 1e3 * clean_s
+    tokens = global_batch * seq_len
+    card = report.get("card")
+    row = dict(
+        model=cfg.name, n_layers=cfg.n_layers, batch=global_batch, seq_len=seq_len,
+        losses=losses_a, aux=aux_a, ce=[x - y for x, y in zip(losses_a, aux_a)],
+        step_s=step_s, replay_step_s=replay_s, clean_step_ms=ms,
+        clean_tokens_per_s=tokens / ms * 1e3,
+        peak_device_bytes=peak, host_available_gb=[host_before, host_after],
+        run_a_s=run_a_s, run_b_s=run_b_s, restore_step2_s=restore2_s,
+        saves=[step_row(st, None, None) for st in saves], launches=launches,
+        profile=profile, moe_ffn_profile=ffn_profile, reference_step_err=ref["err"],
+        reference_routing=ref["routing"], serve_reference_err=max(serve["logits_err"][i]
+                                                                  for i in serve["held_steps"]),
+        serve_routing=serve["routing"],
+    )
+    row["wall_s"] = time.perf_counter() - t_phase
+    report["phase7_moe"] = row
+    log(f"phase7 moe losses {losses_a} (ce {row['ce']}, aux {aux_a}) finite=True; "
+        f"replayed step 3 {losses_a[2:]}")
+    log(f"phase7 moe step_ms (run A, synchronised, checkpoint in flight) "
+        f"{[round(x * 1e3, 3) for x in step_s]}; run B's replayed step 3 "
+        f"{replay_s[0] * 1e3:.3f} ms; clean step_ms (run B's step 4, no checkpoint)="
+        f"{ms:.3f} tokens_per_s={row['clean_tokens_per_s']:.1f}; "
+        f"peak_device_bytes={peak}; host MemAvailable GB before/after run A "
+        f"{row['host_available_gb']} [{card}]")
+    for st in row["saves"]:
+        log(f"phase7 moe save step {st['step']}: stage_s={st['stage_s']:.4f} "
+            f"stage_wait_s={st['stage_wait_s']:.4f} window_s={st['blocking_window_s']:.4f} "
+            f"flush_s={st['flush_s']} flush_bytes={st['flush_bytes']} "
+            f"stored/raw={st['stored_over_raw']:.6f} [{card}]")
+    log(f"phase7 moe restore_s: step 2 into run B={restore2_s:.3f}; run A {run_a_s:.1f} s, "
+        f"run B {run_b_s:.1f} s, wall {row['wall_s']:.1f} s [{card}]")
+    log("phase7 moe run B's step 3 equals run A's byte for byte (params, mu, nu, count, step), "
+        "device digest for digest, cursor for cursor")
+    if "busy_share" in profile:
+        log(f"phase7 moe profiled step wall {profile['wall_s'] * 1e3:.3f} ms against the clean "
+            f"step's {ms:.3f} ms; device busy {profile['busy_ms']:.3f} of "
+            f"{profile['device_span_ms']:.3f} ms ({profile['busy_share']:.4f}) [{card}]")
+    log(f"phase7 moe launches: fused_precodec={launches['fused_precodec']} "
+        f"checksum={launches['checksum']} ({launches})")
+    return launches
+
+
+def phase7_vlm(tmp, report, *, model_cfg=None, seq_len=1472, global_batch=4, ref_kw=None,
+               serve_kw=None):
+    """llava-next-mistral-7b at its published widths (two layers, bf16
+    params and moments): one train step of 576 patch embeddings and text
+    against the port's CPU, prefill with patches and 16 decode steps
+    against the CPU, then the trainer (``run``) takes one step of batch
+    ``global_batch`` x (576 patches + ``seq_len`` text tokens) and saves
+    it with the device pre-codec; restored from the PFS on 3x1 with L1
+    dropped it must equal its host copy and its pre-stage digests.
+    Returns the kernel launches counted over the trainer's run and the
+    restore."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CheckpointConfig, theta_like
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import run
+    from repro_torch.train import OptConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or get_config("llava-next-mistral-7b").replace(n_layers=VLM_LAYERS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                          global_batch=global_batch, seed=SEED, n_patches=cfg.n_patches,
+                          d_model=cfg.d_model, family=cfg.family)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=1), remat=True)
+    root = tmp / "vlm"
+    ckpt = CheckpointConfig(
+        root=str(root), cluster=theta_like(4, 4), strategy="stripe_aligned",
+        codec="zstd+delta", chunk_size=CHUNK_SIZE, device_precodec=True,
+        precodec="none", device=DEVICE,
+    )
+    log(f"phase7 vlm model: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"n_patches={cfg.n_patches} params={cfg.param_dtype} compute={cfg.compute_dtype} "
+        f"batch={global_batch}x({cfg.n_patches}+{seq_len}) remat=True")
+    ref = phase4_reference_step(cfg, tcfg, report=report, tag="phase7 vlm",
+                                **dict(dict(seq_len=32, n_layers=cfg.n_layers, global_batch=1),
+                                       **(ref_kw or {})))
+    serve = phase5_reference(cfg, report, tag="phase7 vlm",
+                             **dict(dict(n_layers=cfg.n_layers, batch=2, prompt=64, steps=16),
+                                    **(serve_kw or {})))
+    gc.collect()
+    reset_counts()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = run(cfg, data_cfg, tcfg, ckpt, steps=1, ckpt_every=1, device=DEVICE, seed=SEED,
+            log=lambda line: log(f"phase7 vlm {line}"))
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    if a.flush_errors or not np.isfinite(a.losses).all():
+        raise AssertionError(f"phase7 vlm: flush errors {a.flush_errors}, losses {a.losses}")
+    dtypes = {t.dtype for _, t in leaves(a.state["params"])} | \
+        {t.dtype for _, t in leaves(a.state["opt"]["mu"])}
+    if dtypes != {cfg.pdt}:
+        raise AssertionError(f"phase7 vlm: the train state is {dtypes}, not {cfg.pdt}")
+    copy = host_copy(a.state)
+    digests = device_digests(a.state)     # the state as staged: no step after the stage
+    cursor = int(a.data.state_tree()["batch_idx"])
+    tree, restore_s, rr = restore_step(root, 1, {"train": a.state, "data": a.data.state_tree()})
+    if rr is None or rr.bytes_read == 0:
+        raise AssertionError("phase7 vlm: the restore did not read the PFS")
+    assert_equal_to_host(tree["train"], copy, "phase7 vlm restored step 1")
+    if not np.array_equal(device_digests(tree["train"]), digests):
+        raise AssertionError("phase7 vlm: digests of the restored step 1 differ")
+    if int(tree["data"]["batch_idx"]) != cursor:
+        raise AssertionError("phase7 vlm: restored step 1 has another batch cursor")
+    launches = read_counts()
+    st = step_row(a.saves[0], restore_s, rr)
+    row = dict(model=cfg.name, n_layers=cfg.n_layers, batch=global_batch,
+               n_patches=cfg.n_patches, seq_len=seq_len, losses=a.losses, step_s=a.step_s,
+               peak_device_bytes=peak, run_s=run_s, save=st, launches=launches,
+               state_bytes=sum(t.numel() * t.element_size() for _, t in copy),
+               reference_step_err=ref["err"], serve_reference_err=max(serve["logits_err"]))
+    del a, tree, copy
+    gc.collect()
+    row["wall_s"] = time.perf_counter() - t_phase
+    report["phase7_vlm"] = row
+    card = report.get("card")
+    log(f"phase7 vlm step 1 loss {row['losses']} step_s {row['step_s']} "
+        f"peak_device_bytes={peak}; bf16 train state {row['state_bytes']} bytes [{card}]")
+    log(f"phase7 vlm save step 1: stage_s={st['stage_s']:.4f} window_s="
+        f"{st['blocking_window_s']:.4f} flush_s={st['flush_s']} restore_s={restore_s:.3f} "
+        f"(3x1, L1 dropped; equal to its host copy and pre-stage digests); wall "
+        f"{row['wall_s']:.1f} s [{card}]")
+    log(f"phase7 vlm launches: fused_precodec={launches['fused_precodec']} "
+        f"checksum={launches['checksum']} ({launches})")
+    return launches
+
+
+def phase7(tmp, report):
+    """qwen2-moe-a2.7b (:func:`phase7_moe`), then llava-next-mistral-7b
+    (:func:`phase7_vlm`); returns the kernel launches of both main paths."""
+    import torch
+
+    moe = phase7_moe(tmp, report)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    release_host_cache("after phase 7's MoE part")
+    vlm = phase7_vlm(tmp, report)
+    return {k: moe[k] + vlm[k] for k in moe}
+
+
+
+
 # (name, report key, source, the TPU kernel's body it replaces)
 KERNEL_ROWS = [
     ("fused_precodec", "fused", "src/repro_torch/kernels/fused/csrc/fused_precodec.cu",
@@ -1804,7 +2352,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=PHASE2_LAYERS,
                     help="depth of phase 2's model state (widths are never cut; "
-                         "every other phase runs the full depth)")
+                         "phases 1 and 3-5 run all 24 layers of qwen1.5-0.5b, phase 6 "
+                         "12, phase 7 one of qwen2-moe-a2.7b's and two of "
+                         "llava-next-mistral-7b's)")
     args = ap.parse_args(argv)
 
     # cuBLAS reads this when it makes its handle; phase 4's bit-exact
@@ -1855,6 +2405,7 @@ def main(argv=None):
         phase_s["2"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
+        release_host_cache("after phase 2")
         t0 = time.perf_counter()
         launches3 = phase3(pool, report)
         phase_s["3"] = time.perf_counter() - t0
@@ -1863,6 +2414,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         launches4, step4_digests = phase4(Path(tmp), report)
         phase_s["4"] = time.perf_counter() - t0
+        gc.collect()
+        release_host_cache("after phase 4")
         t0 = time.perf_counter()
         launches5 = phase5(Path(tmp), report, step4_digests)
         phase_s["5"] = time.perf_counter() - t0
@@ -1872,10 +2425,20 @@ def main(argv=None):
             shutil.rmtree(old) if old.is_dir() else old.unlink()
         gc.collect()
         torch.cuda.empty_cache()
+        release_host_cache("after phase 5")
         t0 = time.perf_counter()
         launches6 = phase6(Path(tmp), pool, report)
         phase_s["6"] = time.perf_counter() - t0
-    launches = [launches2, launches3, launches4, launches5, launches6]
+        # room for phase 7: phase 6's roots go too
+        for old in Path(tmp).iterdir():
+            shutil.rmtree(old) if old.is_dir() else old.unlink()
+        gc.collect()
+        torch.cuda.empty_cache()
+        release_host_cache("after phase 6")
+        t0 = time.perf_counter()
+        launches7 = phase7(Path(tmp), report)
+        phase_s["7"] = time.perf_counter() - t0
+    launches = [launches2, launches3, launches4, launches5, launches6, launches7]
     report["launches"] = {f"phase{i}": n for i, n in enumerate(launches, start=2)}
 
     kernels = []

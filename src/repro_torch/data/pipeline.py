@@ -9,10 +9,13 @@ replays the exact upcoming batches. (``jax.random`` draws cannot be
 reproduced in torch, so the batches differ from the reference's; the
 contract is the same.)
 
+The VLM family's batch also holds ``patches``, float32 stub patch
+embeddings (global_batch, n_patches, d_model) drawn standard normal from
+the same generator, so a resume replays them too. The audio family's
+``frames`` come with that family (ROADMAP Queue 1 item 7).
+
 The state ``{"batch_idx": 0-d int32}`` rides inside the train
 checkpoint. It is a host tensor: the host decides which batch to draw.
-The VLM and audio stub inputs (``patches``, ``frames``) come with those
-families (ROADMAP Queue 1 item 7); ``DataConfig`` keeps their fields.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
-    # vlm / audio frontends (stub embeddings; not drawn yet)
+    # vlm / audio frontends (stub embeddings; frames not drawn yet)
     n_patches: int = 0
     enc_seq: int = 0
     d_model: int = 0
@@ -63,7 +66,11 @@ class SyntheticTokens:
         runs = (base + step * pos) % v
         noise = rng.integers(0, v, runs.shape)
         keep = (pos % 17) != 0
-        return {"tokens": np.where(keep, runs, noise).astype(np.int32)}
+        batch = {"tokens": np.where(keep, runs, noise).astype(np.int32)}
+        if cfg.family == "vlm" and cfg.n_patches:
+            batch["patches"] = rng.standard_normal(
+                (cfg.global_batch, cfg.n_patches, cfg.d_model), dtype=np.float32)
+        return batch
 
     def _batch_at(self, idx: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device)

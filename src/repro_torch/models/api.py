@@ -1,16 +1,17 @@
 """Uniform model facade over the architecture families.
 
-Counterpart of ``repro/models/api.py``. Only the families that route to
-the decoder-only transformer (``dense``; ``moe`` and ``vlm`` raise in
-the model until ROADMAP Queue 1 item 7) are ported; the recurrent,
-hybrid and audio families raise. ``init`` returns the
+Counterpart of ``repro/models/api.py``. The families that route to the
+decoder-only transformer (``dense``, ``moe``, ``vlm``) are ported; the
+recurrent, hybrid and audio families raise (ROADMAP Queue 1 item 7).
+Batch dict keys: ``tokens`` (always), ``patches`` (vlm). ``init`` returns the
 :class:`~repro_torch.models.transformer.Transformer` module, whose
 ``state_tree()`` is the parameter tree that ``loss``, ``forward``,
 ``prefill`` and ``decode_step`` take, as the reference's ``init``
 returns its tree. A cache is a
 :class:`~repro_torch.models.transformer.DecodeCache`; ``cache_struct``
 gives one on the meta device (shapes and dtypes, no memory) where the
-reference gives ``ShapeDtypeStruct`` leaves.
+reference gives ``ShapeDtypeStruct`` leaves, and so does
+``batch_struct``.
 """
 from __future__ import annotations
 
@@ -58,12 +59,19 @@ class Model:
             self.cfg, device=resolve_device(device), generator=generator
         )
 
-    def param_count(self) -> int:
+    def param_count(self, *, active_only: bool = False) -> int:
         """Parameters of the model, counted on the meta device (no
-        memory). ``active_only`` comes with the MoE family."""
+        memory). ``active_only``: less the routed experts a token does
+        not use (``n_experts - top_k`` of them in every layer)."""
         _family_module(self.cfg)
         module = transformer.Transformer(self.cfg, device="meta")
-        return sum(math.prod(p.shape) for p in module.parameters())
+        total = sum(math.prod(p.shape) for p in module.parameters())
+        if active_only and self.cfg.moe is not None:
+            m = self.cfg.moe
+            e_ff = m.expert_d_ff or self.cfg.d_ff
+            per_layer_inactive = 3 * self.cfg.d_model * e_ff * (m.n_experts - m.top_k)
+            total -= per_layer_inactive * self.cfg.n_layers
+        return total
 
     # -- training -----------------------------------------------------------
     def loss(self, params, batch: Dict[str, Any], *, remat: bool = True):
@@ -96,6 +104,22 @@ class Model:
         """A zero cache on the device of ``params``' embedding."""
         _family_module(self.cfg)
         return transformer.init_cache(self.cfg, b, s_max, device=params["embed"].device)
+
+    # -- inputs ---------------------------------------------------------------
+    def batch_struct(self, batch_size: int, seq_len: int) -> Dict[str, torch.Tensor]:
+        """A batch's tensors on the meta device: a VLM batch's row is
+        ``n_patches`` patch embeddings (compute dtype) and the text
+        that fills ``seq_len`` (at least one token)."""
+        cfg = self.cfg
+        _family_module(cfg)
+        if cfg.family == "vlm":
+            n_text = max(1, seq_len - cfg.n_patches)
+            return {
+                "tokens": torch.empty((batch_size, n_text), dtype=torch.int32, device="meta"),
+                "patches": torch.empty((batch_size, cfg.n_patches, cfg.d_model),
+                                       dtype=cfg.cdt, device="meta"),
+            }
+        return {"tokens": torch.empty((batch_size, seq_len), dtype=torch.int32, device="meta")}
 
 
 def get_model(cfg: ModelConfig) -> Model:

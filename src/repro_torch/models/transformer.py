@@ -1,18 +1,23 @@
-"""Decoder-only transformer LM, dense family (llama/qwen style).
+"""Decoder-only transformer LM: dense (llama/qwen style), MoE, and VLM.
 
 Counterpart of ``repro/models/transformer.py``: pre-RMSNorm, GQA
-attention with RoPE, SwiGLU MLP. Parameters keep the reference's
-layout: one tensor per name, stacked over layers (``layers.wq`` is
-``(L, d, q_dim)``), so :meth:`Transformer.state_tree` is the nested dict
-the JAX init gives, with the same keys, shapes and dtypes, and a train
-checkpoint of either package restores in the other.
+attention with RoPE, SwiGLU MLP or the MoE FFN (:mod:`.moe`). VLM
+(LLaVA-style): precomputed patch embeddings (a stub frontend) are
+prepended to the token embeddings, and the loss skips their positions.
+Parameters keep the reference's layout: one tensor per name, stacked
+over layers (``layers.wq`` is ``(L, d, q_dim)``; the MoE FFN's under
+``layers.moe``, its router float32 whatever the parameter dtype), so
+:meth:`Transformer.state_tree` is the nested dict the JAX init gives,
+with the same keys, shapes and dtypes, and a train checkpoint of either
+package restores in the other.
 
-The forward pass ``unbind``\\ s each stack once (backward is then one
-``stack`` a name, where indexing ``w[l]`` in each layer would make
-autograd build a full zero stack per layer) and casts each layer's
-slice to the compute dtype inside the block, as the reference does
-inside its scan. ``remat`` recomputes each block in backward
-(``torch.utils.checkpoint``).
+The forward pass ``unbind``\\ s each stack once, nested ones included
+(backward is then one ``stack`` a name, where indexing ``w[l]`` in each
+layer would make autograd build a full zero stack per layer) and casts
+each layer's slice to the compute dtype inside the block, as the
+reference does inside its scan. ``remat`` recomputes each block in
+backward (``torch.utils.checkpoint``). The MoE blocks' aux losses are
+summed over the layers, as the reference's scan carry sums them.
 
 Serving: ``prefill`` runs the prompt through the same attention paths
 as ``forward`` (unchunked, or query-chunked past ``chunk_q``) and fills
@@ -22,12 +27,13 @@ sequence through the same pieces (``rms_norm``, RoPE at ``cache.pos``,
 dtype. ``decode_step`` returns a new cache, as the reference's scan
 does: it clones the given cache once a step and writes each layer's new
 key and value into the clone, so the cache it was given stays valid.
-
-Not ported yet: the MoE FFN and VLM patches (ROADMAP Queue 1 item 7).
+As in the reference, ``prefill`` and ``decode_step`` route with the
+capacity of their own sequence length (the prompt's, patches included;
+4 in decode), so prefill drops tokens by capacity as training does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,9 +42,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import KVCache, attention, decode_attention, write_at_
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, embed_init, rms_norm, swiglu
-
-MOE_TODO = "the MoE FFN is not ported yet (ROADMAP Queue 1 item 7)"
-VLM_TODO = "VLM patch inputs are not ported yet (ROADMAP Queue 1 item 7)"
+from repro_torch.models.moe import moe_ffn
+from repro_torch.utils.treelib import flatten_with_names, unflatten
 
 
 # ---------------------------------------------------------------------------
@@ -46,73 +51,98 @@ VLM_TODO = "VLM patch inputs are not ported yet (ROADMAP Queue 1 item 7)"
 # ---------------------------------------------------------------------------
 
 
-def layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+def layer_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """Per-layer shape of every stacked parameter, in the reference's
-    order of initialisation."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
+    order of initialisation; the MoE FFN's are nested under ``"moe"``."""
     d, hd = cfg.d_model, cfg.hd
     q_dim = cfg.n_heads * hd
     kv_dim = cfg.n_kv_heads * hd
-    shapes = {"wq": (d, q_dim), "wk": (d, kv_dim), "wv": (d, kv_dim), "wo": (q_dim, d),
-              "ln1": (d,), "ln2": (d,)}
+    shapes: Dict[str, Any] = {
+        "wq": (d, q_dim), "wk": (d, kv_dim), "wv": (d, kv_dim), "wo": (q_dim, d),
+        "ln1": (d,), "ln2": (d,)}
     if cfg.qkv_bias:
         shapes.update(bq=(q_dim,), bk=(kv_dim,), bv=(kv_dim,))
-    shapes.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d))
+    if cfg.moe is not None:
+        m = cfg.moe
+        e_ff = m.expert_d_ff or cfg.d_ff
+        moe = {"router": (d, m.n_experts), "w_gate": (m.n_experts, d, e_ff),
+               "w_up": (m.n_experts, d, e_ff), "w_down": (m.n_experts, e_ff, d)}
+        if m.n_shared:
+            sh_ff = m.shared_d_ff or m.n_shared * e_ff
+            moe.update(shared_gate=(d, sh_ff), shared_up=(d, sh_ff), shared_down=(sh_ff, d))
+        shapes["moe"] = moe
+    else:
+        shapes.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d))
     return shapes
 
 
 _ZERO_INIT = ("ln1", "ln2", "bq", "bk", "bv")
+# the router stays float32 whatever the parameter dtype (reference
+# init_layer), so its AdamW moments are float32 too
+_FLOAT32_LEAVES = ("router",)
 
 
 class Transformer(nn.Module):
-    """The dense decoder's parameters, stacked over layers.
+    """The decoder's parameters, stacked over layers.
 
     With a ``generator`` the parameters are initialised as the
     reference initialises them (normal draws, from the generator's
     device, then placed on ``device``); without one they are left
-    uninitialised (``torch.empty``), to be loaded.
+    uninitialised (``torch.empty``), to be loaded. The MoE FFN's stacks
+    are the module's ``moe`` (``None`` for a dense FFN); ``state_tree``
+    nests them under ``layers`` as the reference does.
     """
 
     def __init__(self, cfg: ModelConfig, *, device, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        pdt = cfg.pdt
         v, d, n = cfg.vocab_size, cfg.d_model, cfg.n_layers
 
-        def make(shape, init, *, layers=None):
+        def make(shape, init, *, layers=None, dtype=cfg.pdt):
             full = shape if layers is None else (layers, *shape)
             if generator is None:
-                return nn.Parameter(torch.empty(full, dtype=pdt, device=device))
+                return nn.Parameter(torch.empty(full, dtype=dtype, device=device))
             if init == "zeros":
-                return nn.Parameter(torch.zeros(full, dtype=pdt, device=device))
+                return nn.Parameter(torch.zeros(full, dtype=dtype, device=device))
             if init == "embed":
-                return nn.Parameter(embed_init(generator, full, pdt, device=device))
-            return nn.Parameter(dense_init(generator, shape, pdt, layers=layers, device=device))
+                return nn.Parameter(embed_init(generator, full, dtype, device=device))
+            return nn.Parameter(dense_init(generator, shape, dtype, layers=layers, device=device))
+
+        def stacks(shapes):
+            return nn.ParameterDict({
+                name: make(shape, "zeros" if name in _ZERO_INIT else "dense", layers=n,
+                           dtype=torch.float32 if name in _FLOAT32_LEAVES else cfg.pdt)
+                for name, shape in shapes.items()
+            })
 
         self.embed = make((v, d), "embed")
         self.final_norm = make((d,), "zeros")
         self.out = None if cfg.tie_embeddings else make((v, d), "dense")
-        self.layers = nn.ParameterDict({
-            name: make(shape, "zeros" if name in _ZERO_INIT else "dense", layers=n)
-            for name, shape in layer_shapes(cfg).items()
-        })
+        shapes = layer_shapes(cfg)
+        moe = shapes.pop("moe", None)
+        self.layers = stacks(shapes)
+        self.moe = None if moe is None else stacks(moe)
 
     def state_tree(self) -> Dict[str, Any]:
         """The reference's parameter tree; its leaves are this module's
         own parameters (not copies)."""
+        layers: Dict[str, Any] = dict(self.layers.items())
+        if self.moe is not None:
+            layers["moe"] = dict(self.moe.items())
         tree: Dict[str, Any] = {
             "embed": self.embed,
             "final_norm": self.final_norm,
-            "layers": dict(self.layers.items()),
+            "layers": layers,
         }
         if self.out is not None:
             tree["out"] = self.out
         return tree
 
-    def forward(self, tokens: torch.Tensor, *, chunk_q: Optional[int] = -1,
+    def forward(self, tokens: torch.Tensor, *, patches: Optional[torch.Tensor] = None,
+                chunk_q: Optional[int] = -1,
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        return forward(self.state_tree(), self.cfg, tokens, chunk_q=chunk_q, remat=remat)
+        return forward(self.state_tree(), self.cfg, tokens, patches=patches, chunk_q=chunk_q,
+                       remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -146,29 +176,51 @@ def _out(p, cfg: ModelConfig, o):
     return o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(o.dtype)
 
 
-def _mlp(p, cfg: ModelConfig, x):
-    """The residual MLP half of a block: ``x + swiglu(rms_norm(x))``."""
+def _ffn(p, cfg: ModelConfig, x):
+    """The residual FFN half of a block: ``x + ffn(rms_norm(x))``, and
+    the MoE FFN's aux loss (``None`` for a dense FFN)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.moe is not None:
+        f, aux = moe_ffn(h, p["moe"], cfg.moe)
+        return x + f, aux
+    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
 
 
 def _block_kv(p, cfg: ModelConfig, x, positions, *, chunk_q):
-    """One block; also returns its keys and values (B, S, H_kv, hd)."""
+    """One block: ``(x, aux, k, v)`` with its keys and values
+    (B, S, H_kv, hd)."""
     q, k, v = _qkv(p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions)
     o = attention(q, k, v, causal=True, window=cfg.window, chunk_q=chunk_q)
-    return _mlp(p, cfg, x + _out(p, cfg, o)), k, v
+    x, aux = _ffn(p, cfg, x + _out(p, cfg, o))
+    return x, aux, k, v
 
 
 def block(p, cfg: ModelConfig, x, positions, *, chunk_q=1024):
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
-    return _block_kv(p, cfg, x, positions, chunk_q=chunk_q)[0]
+    """One block: ``(x, aux)``; aux is ``None`` for a dense FFN (the
+    reference's zero, which adds nothing)."""
+    return _block_kv(p, cfg, x, positions, chunk_q=chunk_q)[:2]
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, patches=None):
+    x = params["embed"].to(cfg.cdt)[tokens.long()]
     if patches is not None:
-        raise NotImplementedError(VLM_TODO)
-    return params["embed"].to(cfg.cdt)[tokens.long()]
+        x = torch.cat([patches.to(cfg.cdt), x], dim=1)
+    return x
+
+
+def _layer_slices(params) -> Tuple[Any, List[Tuple[torch.Tensor, ...]]]:
+    """The treedef of ``params["layers"]`` (nested stacks included) and,
+    per layer, the tuple of its stacks' slices: one ``unbind`` a stack."""
+    named, treedef = flatten_with_names(params["layers"])
+    return treedef, list(zip(*(w.unbind(0) for _, w in named)))
+
+
+def _layers(params) -> Iterator[Dict[str, Any]]:
+    """Each layer's parameters as a dict (nested as ``layers`` is) of
+    slices of the stacks."""
+    treedef, per_layer = _layer_slices(params)
+    for lp in per_layer:
+        yield unflatten(treedef, list(lp))
 
 
 def forward(
@@ -180,32 +232,26 @@ def forward(
     chunk_q: Optional[int] = -1,
     remat: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, V), aux loss ())."""
+    """-> (logits (B, S, V), aux loss () float32)."""
     if chunk_q == -1:
         chunk_q = cfg.chunk_q
     x = embed_inputs(params, cfg, tokens, patches)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    names = list(params["layers"])
-    slices = [params["layers"][n].unbind(0) for n in names]
+    treedef, per_layer = _layer_slices(params)
 
     def body(h, *lp):
-        return block(dict(zip(names, lp)), cfg, h, positions, chunk_q=chunk_q)
+        return block(unflatten(treedef, list(lp)), cfg, h, positions, chunk_q=chunk_q)
 
-    for lp in zip(*slices):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in per_layer:
         if remat:
-            x = checkpoint(body, x, *lp, use_reentrant=False)
+            x, a = checkpoint(body, x, *lp, use_reentrant=False)
         else:
-            x = body(x, *lp)
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
-
-
-def _layers(params):
-    """Each layer's parameters as a dict of slices of the stacks (one
-    ``unbind`` a name)."""
-    names = list(params["layers"])
-    for lp in zip(*(params["layers"][n].unbind(0) for n in names)):
-        yield dict(zip(names, lp))
+            x, a = body(x, *lp)
+        if a is not None:
+            aux = aux + a
+    return _logits(params, cfg, x), aux
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -223,13 +269,15 @@ def lm_loss(
     chunk_q: Optional[int] = -1,
     remat: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy.
+    """Next-token cross-entropy (patch prefix positions excluded).
 
     The gold logit comes from ``gather``: a sum of one value and zeros
     is exact, so it equals the reference's mask-and-reduce without its
     (B, S, V) mask."""
     logits, aux = forward(params, cfg, tokens, patches=patches, chunk_q=chunk_q, remat=remat)
-    pred = logits[:, : tokens.shape[1] - 1]
+    n_prefix = 0 if patches is None else patches.shape[1]
+    # predict tokens[t+1] from position n_prefix + t
+    pred = logits[:, n_prefix : n_prefix + tokens.shape[1] - 1]
     tgt = tokens[:, 1:].long()
     lf = pred.float()
     lse = torch.logsumexp(lf, dim=-1)
@@ -267,9 +315,8 @@ def prefill(
     s_max: Optional[int] = None,
     chunk_q: Optional[int] = -1,
 ) -> Tuple[DecodeCache, torch.Tensor]:
-    """Run the prompt, build the KV cache, return logits of the last token."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
+    """Run the prompt (patches first), build the KV cache, return
+    logits of the last token."""
     if chunk_q == -1:
         chunk_q = cfg.chunk_q
     x = embed_inputs(params, cfg, tokens, patches)
@@ -278,7 +325,7 @@ def prefill(
     positions = torch.arange(s, device=x.device)[None, :]
     cache = init_cache(cfg, b, s_max, device=x.device)
     for layer, p in enumerate(_layers(params)):
-        x, k, v = _block_kv(p, cfg, x, positions, chunk_q=chunk_q)
+        x, _, k, v = _block_kv(p, cfg, x, positions, chunk_q=chunk_q)
         cache.k[layer, :, :s] = k
         cache.v[layer, :, :s] = v
     logits = _logits(params, cfg, x[:, -1])
@@ -290,8 +337,6 @@ def decode_step(
 ) -> Tuple[torch.Tensor, DecodeCache]:
     """tokens: (B, 1) -> (logits (B, V), updated cache); ``cache`` is
     left unchanged."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
     x = embed_inputs(params, cfg, tokens)                  # (B, 1, d)
     positions = cache.pos + torch.zeros((1, 1), dtype=torch.int32, device=x.device)
     pos = cache.pos + 1
@@ -301,5 +346,5 @@ def decode_step(
         write_at_(ks[layer], k, cache.pos)
         write_at_(vs[layer], v, cache.pos)
         o = decode_attention(q, KVCache(ks[layer], vs[layer], pos), window=cfg.window)
-        x = _mlp(p, cfg, x + _out(p, cfg, o))
+        x, _ = _ffn(p, cfg, x + _out(p, cfg, o))
     return _logits(params, cfg, x[:, 0]), DecodeCache(k=ks, v=vs, pos=pos)

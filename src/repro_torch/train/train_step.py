@@ -6,8 +6,10 @@ with ``count`` and ``step`` 0-d int32 tensors; its ``params`` leaves
 are a :class:`~repro_torch.models.transformer.Transformer`'s own
 parameters. The step updates the state in place and returns it.
 
-Microbatches run as a Python loop (``lax.scan`` there), each gradient
-added as ``g_acc + g / k`` in ``accum_dtype``. ``train_state_specs``,
+Microbatches run as a Python loop (``lax.scan`` there), every batch
+leaf (the tokens, and a VLM batch's patches) split on its first axis
+and each gradient added as ``g_acc + g / k`` in ``accum_dtype``. The
+loss is the model's: cross-entropy plus the MoE layers' aux loss. ``train_state_specs``,
 ``batch_spec_tree`` and ``make_train_step`` (mesh shardings) come with
 the DeviceMesh slice (ROADMAP Queue 1 item 7).
 """

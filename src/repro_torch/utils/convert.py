@@ -11,7 +11,9 @@ are kept (see :mod:`repro_torch.utils.treelib`).
 
 :func:`params_from_numpy` and :func:`train_state_from_numpy` load a JAX
 parameter or train-state tree into the port's model module and
-optimizer state; :func:`copy_tree_` loads any tree into another in
+optimizer state, the MoE family's nested ``layers.moe`` leaves (a
+float32 router beside bfloat16 params, with float32 moments) included;
+:func:`copy_tree_` loads any tree into another in
 place (a restore into a live train state). :func:`cache_from_numpy` and
 :func:`cache_to_numpy` carry a decode cache (``k``, ``v``, ``pos``)
 between the two packages' ``DecodeCache`` types.

@@ -297,6 +297,33 @@ def test_train_runs_on_the_card_are_bit_equal(cuda, compute):
         assert x.tobytes() == y.tobytes(), n
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_moe_forward_backward_on_the_card_is_bit_equal(cuda, compute):
+    """The MoE smoke model's loss and gradients, twice under deterministic
+    algorithms on a batch whose routing drops slots: the same bits (the
+    dispatch writes unique slots; the combine gather's backward and the
+    embedding's accumulate in a fixed order). No op on the path raises
+    under the mode."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.models import get_model
+
+    cfg = get_smoke_config("qwen2-moe-a2.7b").replace(compute_dtype=compute)
+    model = get_model(cfg)
+    module = model.init(torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, dtype=torch.int32)
+    leaves = [p for _, p in flatten_with_names(module.state_tree())[0]]
+    out = []
+    with deterministic_algorithms():
+        for _ in range(2):
+            loss, parts = model.loss(module.state_tree(), {"tokens": tokens.cuda()})
+            out.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    assert float(parts["aux"]) > 0
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
 def test_generate_on_the_card_matches_the_cpu(cuda):
     """Server.generate of qwen's smoke config (float32) on the card
     keeps params and cache on the card; the CPU, teacher-forced on the

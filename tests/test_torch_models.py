@@ -21,7 +21,7 @@ from repro.models import attention as ref_attention
 from repro.models import get_model as ref_get_model
 from repro.models import layers as ref_layers
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
-from repro_torch.models import attention, get_model, layers, transformer
+from repro_torch.models import attention, get_model, layers
 from repro_torch.utils.convert import copy_tree_, params_from_numpy, tree_to_numpy
 from repro_torch.utils.treelib import flatten_with_names
 
@@ -105,27 +105,11 @@ def test_copy_tree_checks_names_shapes_and_dtypes():
         copy_tree_(module.state_tree(), bad)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "xlstm-350m", "whisper-small"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-small"])
 def test_families_not_ported_yet_raise(arch):
     model = get_model(get_smoke_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         model.init(torch.Generator(), "cpu")
-
-
-def test_serving_and_patches_raise():
-    """Serving the dense family is ported (tests/test_torch_serve.py);
-    serving the MoE family and VLM patch inputs still raise, naming
-    their ROADMAP item."""
-    moe = get_smoke_config("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        transformer.prefill({}, moe, torch.zeros((1, 2), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        transformer.decode_step({}, moe, None, torch.zeros((1, 1), dtype=torch.int32))
-    _, _, ref_np = ref_params("qwen1.5-0.5b")
-    _, module = port_model("qwen1.5-0.5b", ref_np)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        transformer.forward(module.state_tree(), module.cfg, t(tokens(0, 1, 4, 256)),
-                            patches=torch.zeros(1, 2, 96))
 
 
 def test_configs_are_the_reference_configs():

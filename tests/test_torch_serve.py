@@ -181,18 +181,10 @@ def test_cache_struct_and_init_cache():
     assert cache.k.device.type == "cpu" and not cache.k.any() and int(cache.pos) == 0
 
 
-def test_serving_the_moe_family_raises():
-    model = get_model(get_smoke_config("qwen2-moe-a2.7b"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model.decode_step({}, None, torch.zeros((1, 1), dtype=torch.int32))
-
-
 # -- the server --------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e"])
 def test_greedy_tokens_match_the_reference_server(arch):
     ref_model, ref_p, ref_np = ref_params(arch, seed=7)
     model, params = port_model(arch, ref_np)

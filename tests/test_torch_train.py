@@ -52,6 +52,16 @@ from repro_torch.utils.treelib import flatten_with_names
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ["qwen1.5-0.5b", "tinyllama-1.1b"]
+# the families beside the dense one: MoE FFN (top-2 of 8, shared
+# experts) and VLM patch inputs
+MOE_VLM = ["qwen2-moe-a2.7b", "llava-next-mistral-7b"]
+
+
+def data_kw(arch):
+    """The data config's fields for ``arch``'s smoke config: a VLM
+    batch also draws patches."""
+    cfg = get_smoke_config(arch)
+    return dict(n_patches=cfg.n_patches, d_model=cfg.d_model, family=cfg.family)
 
 
 def to_np(tree):
@@ -129,12 +139,13 @@ def ref_steps():
     """Per arch: the reference's jitted step, its initial state and
     three batches, with the states it reaches and its metrics."""
     out = {}
-    for arch in DENSE:
+    for arch in DENSE + MOE_VLM:
         tcfg = RefTrainConfig(opt=RefOptConfig(lr=1e-2, warmup_steps=2, total_steps=10))
         model = ref_get_model(ref_smoke_config(arch))
         step = jax.jit(ref_build_train_step(model, tcfg))
         state = ref_init_train_state(model, jax.random.PRNGKey(0), tcfg)
-        data = RefSyntheticTokens(RefDataConfig(vocab_size=256, seq_len=32, global_batch=4))
+        data = RefSyntheticTokens(RefDataConfig(vocab_size=256, seq_len=32, global_batch=4,
+                                                **data_kw(arch)))
         states, metrics, batches = [to_np(state)], [], []
         for _ in range(3):
             batches.append(to_np(data.next()))
@@ -145,7 +156,7 @@ def ref_steps():
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
 def test_train_steps_match_reference(arch, ref_steps):
     """Three steps on the reference's batches (lr 5e-3, then 1e-2).
 
@@ -386,11 +397,13 @@ def test_cli_train_and_resume(tmp_path):
 # -- train states across the packages --------------------------------------
 
 
-def test_reference_train_state_restores_into_port_and_continues(tmp_path, ref_steps):
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b"] + MOE_VLM)
+def test_reference_train_state_restores_into_port_and_continues(tmp_path, ref_steps, arch):
     """A reference state after two steps, saved by ``repro``, restores
-    byte for byte into the port; one more step in each package on the
-    same batch agrees to float32 rounding."""
-    ref = ref_steps["qwen1.5-0.5b"]
+    byte for byte into the port (the MoE state's nested ``moe`` leaves
+    included); one more step in each package on the same batch agrees
+    to float32 rounding."""
+    ref = ref_steps[arch]
     state2 = ref["states"][2]
     saved = {"train": state2, "data": {"batch_idx": np.array(2, np.int32)}}
     mgr = R.CheckpointManager(R.CheckpointConfig(
@@ -399,10 +412,11 @@ def test_reference_train_state_restores_into_port_and_continues(tmp_path, ref_st
     mgr.wait()
     mgr.close()
 
-    model = get_model(get_smoke_config("qwen1.5-0.5b"))
+    model = get_model(get_smoke_config(arch))
     tcfg = TrainConfig(opt=OptConfig(lr=1e-2, warmup_steps=2, total_steps=10))
     state = init_train_state(model, torch.Generator().manual_seed(9), tcfg, "cpu")
-    data = SyntheticTokens(DataConfig(vocab_size=256, seq_len=32, global_batch=4), device="cpu")
+    data = SyntheticTokens(DataConfig(vocab_size=256, seq_len=32, global_batch=4,
+                                      **data_kw(arch)), device="cpu")
     pm = T.CheckpointManager(T.CheckpointConfig(
         root=str(tmp_path), cluster=T.theta_like(3, 1), strategy="mpiio", codec="zstd",
         device="cpu"))
@@ -420,13 +434,15 @@ def test_reference_train_state_restores_into_port_and_continues(tmp_path, ref_st
         np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-4, err_msg=n)
 
 
-def test_port_train_state_restores_in_reference(tmp_path):
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b"] + MOE_VLM)
+def test_port_train_state_restores_in_reference(tmp_path, arch):
     """A port state after two steps (bf16 compute), saved by the port
     with the device pre-codec, restores byte for byte in ``repro``."""
-    cfg = get_smoke_config("qwen1.5-0.5b").replace(compute_dtype="bfloat16")
+    cfg = get_smoke_config(arch).replace(compute_dtype="bfloat16")
     model = get_model(cfg)
     tcfg = TrainConfig(opt=OptConfig(lr=1e-2, warmup_steps=2, total_steps=10))
-    data = SyntheticTokens(DataConfig(vocab_size=256, seq_len=32, global_batch=4), device="cpu")
+    data = SyntheticTokens(DataConfig(vocab_size=256, seq_len=32, global_batch=4,
+                                      **data_kw(arch)), device="cpu")
     state = init_train_state(model, torch.Generator().manual_seed(2), tcfg, "cpu")
     step = build_train_step(model, tcfg)
     for _ in range(2):
@@ -437,7 +453,7 @@ def test_port_train_state_restores_in_reference(tmp_path):
     mgr.wait()
     mgr.close()
 
-    ref_model = ref_get_model(ref_smoke_config("qwen1.5-0.5b"))
+    ref_model = ref_get_model(ref_smoke_config(arch))
     target = {"train": to_np(ref_init_train_state(ref_model, jax.random.PRNGKey(0),
                                                   RefTrainConfig())),
               "data": {"batch_idx": np.array(0, np.int32)}}
