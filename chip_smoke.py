@@ -40,7 +40,8 @@ to ``fused_precodec`` of the same streams; both wall times are logged.
 ``--layers`` cuts phase 2's depth (never a width) and no other phase's.
 
 Phase 4 is the port's trainer (``repro_torch.launch.train.run``) at
-qwen1.5-0.5b's full width and depth (float32 params, bfloat16 compute,
+qwen1.5-0.5b's full width cut to 12 of its 24 layers (``PHASE4_LAYERS``,
+since phase 8 came; a 5,584,416,776-byte state; float32 params, bfloat16 compute,
 batch 4 x 2048 tokens, remat) under deterministic algorithms: run A
 trains steps 1-4 and checkpoints steps 2 and 4 with the device
 pre-codec (so ``fused_precodec`` runs on the trainer's own saves); run
@@ -63,7 +64,7 @@ serving path at full widths cut to two layers (prefill of 2 x 2048
 tokens, 16 greedy decode steps) runs on the card and through the port's
 CPU, teacher-forced on the card's tokens, within ``SERVE_REF_TOL``. Then
 a serving manager on another geometry (2x1) cold-starts a two-replica
-``ServeFleet`` from step 2 at full depth (every replica byte- and
+``ServeFleet`` from step 2 at phase 4's depth (every replica byte- and
 digest-equal to a full restore of step 2), both replicas generate the
 same 64 greedy tokens for 8 prompts of 2048 tokens, the follower
 hot-swaps the fleet onto step 4 while a client generates in a loop (no
@@ -124,7 +125,44 @@ saves it with the device pre-codec; restored from the PFS on 3x1 with L1
 dropped it must equal its host copy and pre-stage digests. ``--layers``
 never cuts phase 7.
 
-After phases 2 and 4-6, and within phase 7, the pinned host blocks that
+Phase 8 runs the recurrent families of the port at published widths,
+with everything under the run's temporary directory removed first.
+xlstm-350m (``src/repro/configs/xlstm_350m.py``: 24 layers, 18 mLSTM
+and 6 sLSTM in the pattern m,m,m,s, d_model 1024, 4 heads, vocab 50304,
+float32 params, bf16 compute) at full depth, a 5,772,990,144-byte train
+state: float32 steps against the port's CPU of one period (the sLSTM
+in it) at 8 x 8 tokens and of its three mLSTM layers at 1 x 2048 (two
+mLSTM chunks carry state); run A trains steps 1-3 at batch 128 x 64
+(every loss finite) saving step 2 (staged beside step 3) with the device
+pre-codec as an anchor; run B restores step 2 from the
+PFS with L1 dropped and replays step 3, equal byte for byte, digest for
+digest, cursor for cursor; the sLSTM's share of a step (a period's step
+against its three mLSTMs') and a device profile of a period's step;
+``Server.generate`` of 8 x 2048 + 16 tokens from run B's params and a
+serving snapshot (params, recurrent state, next token) after 8 tokens,
+restored from the PFS into a fresh server that emits the other 8
+identically; then prefill of 2 x 2048 and 16 decode steps of the three
+mLSTM layers against the CPU and against teacher forcing on the card, in
+float32 (``SERVE_REF_TOL_F32``). The reference's sLSTM at these widths
+is chaotic and its backward grows about twice a token (see
+``XLSTM_PERIOD_REF``): two computations agree on it only over its first
+tokens, and the 24 layers' gradients overflow float32 from 256 tokens
+on, so the trainer runs 64-token sequences (4 x 2048 before, NaN from
+step 1).
+recurrentgemma-2b (``src/repro/configs/recurrentgemma_2b.py``: d_model
+2560, 10 query heads and 1 KV head of 256, d_ff 7680, vocab 256000
+tied, window 2048, float32 params with float32 gates, bf16 compute) cut
+to one period of 3 of its 26 layers (rglru, rglru, attn; a
+10,947,840,000-byte state): one step at 1 x 512 against the CPU; run A
+trains steps 1-2 at 1 x 4096 (past the window) saving step 1 (staged
+beside step 2);
+run B restores step 1 and replays step 2 byte for byte; serving from run
+B's params (generate 4 x 4096 + 16, so the ring buffers wrap; a snapshot
+of params, ring caches and RG-LRU state after 8 tokens) and decode
+against teacher forcing on the card (``SERVE_REF_TOL``). ``--layers``
+never cuts phase 8.
+
+After phases 2 and 4-6, and within phases 7 and 8, the pinned host blocks that
 PyTorch's caching host allocator keeps (the pre-codec's D2H buffers) go
 back to the system (``release_host_cache``): kept, they filled the
 host's 96 GiB in phase 7.
@@ -159,13 +197,13 @@ SEED = 20211203
 
 # qwen1.5-0.5b (src/repro/configs/qwen1_5_0_5b.py)
 VOCAB, D_MODEL, D_FF, N_LAYERS = 151936, 1024, 2816, 24
-# phase 2's default depth: with phases 4-6 at full depth the script took
-# 794.8-948.9 s on one H100 with phase 2 at 24 layers (PERF.md), too
-# close to the 1,200 s a run may take
+# the depths of qwen1.5-0.5b's phases, cut (never a width) so that the
+# script ends well within the 1,200 s a run may take: phase 2's default
+# and phase 6's (12 since phase 7 came), phases 4 and 5's (12 since phase
+# 8; 24 before)
 PHASE2_LAYERS = 12
-# phase 6's depth: phase 7 adds about 225 s, and the script must end
-# within 1,200 s (PERF.md)
 PHASE6_LAYERS = 12
+PHASE4_LAYERS = 12
 LAYER_SHAPES = {
     "wq": (D_MODEL, D_MODEL), "wk": (D_MODEL, D_MODEL),
     "wv": (D_MODEL, D_MODEL), "wo": (D_MODEL, D_MODEL),
@@ -351,14 +389,23 @@ def host_copy(state):
     return [(n, t.detach().to("cpu", copy=True)) for n, t in leaves(state)]
 
 
-def assert_equal_to_host(tree, copy, what):
+def same_bytes(got, want, what):
+    """Two lists of (name, tensor), on any devices, equal in names,
+    dtypes, shapes and bytes: floats compare as integers, so NaN payloads
+    count (the xLSTM's state is NaN after its first update) and -0.0 is
+    not 0.0."""
     import torch
 
-    got = leaves(tree)
-    assert [n for n, _ in got] == [n for n, _ in copy], what
-    for (n, t), (_, h) in zip(got, copy):
-        assert t.dtype == h.dtype and t.shape == h.shape, (what, n)
-        if not torch.equal(t, h.to(t.device)):
+    if [n for n, _ in got] != [n for n, _ in want]:
+        raise AssertionError(f"{what}: other leaves")
+    for (n, x), (_, y) in zip(got, want):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{what}: leaf {n} is {x.dtype}{tuple(x.shape)}, "
+                                 f"not {y.dtype}{tuple(y.shape)}")
+        if x.is_floating_point():
+            as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+            x, y = x.view(as_int), y.view(as_int)
+        if not torch.equal(x, y.to(x.device)):
             raise AssertionError(f"{what}: leaf {n} differs")
 
 
@@ -790,7 +837,7 @@ def phase2(n_layers, tmp, pool, report):
     rows = []
     for step in (1, 2, 3):
         tree, secs, rr = restore_step(root, step, state)
-        assert_equal_to_host(tree, copies[step], f"step {step}")
+        same_bytes(leaves(tree), copies[step], f"step {step}")
         post = device_digests(tree)
         if not np.array_equal(post, pre[step]):
             bad = [n for (n, _), a, b in zip(leaves(tree), post, pre[step]) if (a != b).any()]
@@ -1130,18 +1177,22 @@ def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batc
 
     from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.models import get_model
-    from repro_torch.models.transformer import Transformer
-    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.train import build_train_step
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.utils.convert import copy_tree_
 
     cfg = cfg.replace(n_layers=n_layers)
     model = get_model(cfg)
-    cpu_state = init_train_state(model, torch.Generator().manual_seed(SEED), tcfg, "cpu")
-    module = Transformer(cfg, device=DEVICE)
-    params = copy_tree_(module.state_tree(), cpu_state["params"])
-    card_state = {"params": params, "opt": init_opt_state(params, tcfg.opt),
-                  "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+
+    def state(params, dev):
+        return {"params": params, "opt": init_opt_state(params, tcfg.opt),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    # drawn on the card (the CPU's draws of a state of 0.3-1.2 G parameters
+    # took seconds to tens of seconds), then copied to the CPU
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE).state_tree()
+    card_state = state(params, DEVICE)
+    cpu_state = state(copy_tree_(model.build("cpu").state_tree(), params), "cpu")
     start = [p.detach().clone() for _, p in leaves(params)]
     batch = SyntheticTokens(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch, seed=SEED,
@@ -1186,7 +1237,7 @@ def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batc
     if routed:
         err["mu_routed"] = max(mu[n] for n in routed)
     err["update_norm"] = max(upd.values())
-    del card_state, cpu_state, module, params, start
+    del card_state, cpu_state, params, start
     row = dict(n_layers=n_layers, batch=global_batch, seq_len=seq_len, metrics=gm,
                cpu_metrics=cm, step_s=g_s, cpu_step_s=c_s, err=err, tol=tol,
                mu_rel=mu, update_norm_rel=upd, routing=routing)
@@ -1213,103 +1264,165 @@ def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batc
     return row
 
 
-def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
-    """The port's trainer at qwen1.5-0.5b's full width and depth: run A
-    trains steps 1-4 with a device pre-codec save every 2 steps (the
-    fused pass runs on the trainer's own saves); run B, a fresh model,
-    pipeline and manager on the same root, restores step 2 from the PFS
-    with L1 dropped and replays steps 3-4. Run B's state must equal run
-    A's byte for byte, and so must step 4 restored from the PFS. Before
-    run A, one step at the same widths and sequence length (two layers)
-    is held against the port's CPU step. Returns the kernel launches
-    counted over both runs, and the device digests of run A's step-4
-    params (phase 5 holds the served params to them)."""
+def train_and_replay(cfg, root, report, tag, *, seq_len, global_batch, steps, ckpt_every,
+                     save_last=True, ckpt_kw=None, around_a=None, log_a=None, keep_a=False):
+    """The trainer (``run``) on ``cfg`` at batch ``global_batch`` x
+    ``seq_len`` under ``root``: run A trains steps 1..``steps`` with a
+    device pre-codec save every ``ckpt_every`` steps and, with
+    ``save_last``, at the last (each staged on the card after its step
+    and saved after the next); run B, a fresh model, pipeline and manager
+    on the same root, restores the last save before step ``steps`` from
+    the PFS with L1 dropped and replays the steps after it. Every loss of
+    run A must be finite, and run B's losses and state (params, mu, nu,
+    count, step) must equal run A's byte for byte, device digest for
+    digest and cursor for cursor. ``around_a(go)`` runs ``go()``, run A,
+    inside the caller's context; ``log_a`` sees each of run A's log
+    lines. Returns a dict: run A's ``losses``, ``step_s``, ``saves``
+    (``SaveStats``), ``peak`` device bytes and ``run_a_s``, its leaves'
+    ``names``, ``digests`` and data ``cursor`` (with ``keep_a`` also its
+    state's leaves, ``state_a``); ``b``, run B's ``TrainRun``,
+    ``run_b_s`` and ``resume``, the step it restored; the kernel
+    ``launches`` over both runs."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import CheckpointConfig, theta_like
     from repro_torch.data import DataConfig
-    from repro_torch.launch.train import deterministic_algorithms, run
+    from repro_torch.launch.train import run
     from repro_torch.train import OptConfig, TrainConfig
 
-    t_phase = time.perf_counter()
-    cfg = model_cfg or get_config("qwen1.5-0.5b")
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                           global_batch=global_batch, seed=SEED)
-    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=4), remat=True)
-    root = tmp / "train"
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=steps), remat=True)
     ckpt = CheckpointConfig(
         root=str(root), cluster=theta_like(4, 4), strategy="stripe_aligned",
         codec="zstd+delta", chunk_size=CHUNK_SIZE, device_precodec=True,
-        precodec="none", device=DEVICE,
+        precodec="none", device=DEVICE, **(ckpt_kw or {}),
     )
-    log(f"phase4 model: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} params={cfg.param_dtype} "
-        f"compute={cfg.compute_dtype} batch={global_batch}x{seq_len} remat=True")
-
-    def tagged(tag):
-        return lambda line: log(f"phase4 {tag} {line}")
-
-    ref = phase4_reference_step(cfg, tcfg, seq_len, report)
+    resume = (steps - 1) // ckpt_every * ckpt_every
     gc.collect()
     reset_counts()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    a = run(cfg, data_cfg, tcfg, ckpt, steps=4, ckpt_every=2, device=DEVICE,
-            seed=SEED, log=tagged("A"))
-    run_a_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
-    if a.flush_errors:
-        raise AssertionError(f"phase4 flush errors: {a.flush_errors}")
-    if not np.isfinite(a.losses).all():
-        raise AssertionError(f"phase4 loss is not finite: {a.losses}")
-    launches_a = read_counts()
-    if launches_a["fused_precodec"] == 0:
-        raise AssertionError("phase4: fused_precodec was not launched on the trainer's saves")
-    copy = host_copy(a.state)
-    digests = device_digests(a.state)
-    params_digests = digests[[n.startswith("['params']") for n, _ in leaves(a.state)]]
-    cursor = int(a.data.state_tree()["batch_idx"])
-    target = {"train": a.state, "data": a.data.state_tree()}
 
-    # step 4 from the PFS, elastic 16 -> 3 ranks, L1 of all 4 saving nodes dropped
-    tree, restore4_s, _ = restore_step(root, 4, target)
-    assert_equal_to_host(tree["train"], copy, "phase4 restored step 4")
-    if not np.array_equal(device_digests(tree["train"]), digests):
-        raise AssertionError("phase4: digests of the restored step 4 differ")
-    if int(tree["data"]["batch_idx"]) != cursor:
-        raise AssertionError("phase4: restored step 4 has another batch cursor")
-    del tree, target
-    losses_a, step_s, saves = a.losses, a.step_s, a.saves
+    def line_a(line):
+        if log_a is not None:
+            log_a(line)
+        log(f"{tag} A {line}")
+
+    def run_a():
+        return run(cfg, data_cfg, tcfg, ckpt, steps=steps, ckpt_every=ckpt_every,
+                   device=DEVICE, seed=SEED, log=line_a, save_last=save_last)
+
+    t0 = time.perf_counter()
+    a = around_a(run_a) if around_a else run_a()
+    out = dict(run_a_s=time.perf_counter() - t0, resume=resume,
+               peak=torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None)
+    if a.flush_errors or not np.isfinite(a.losses).all():
+        raise AssertionError(f"{tag}: flush errors {a.flush_errors}, losses {a.losses}")
+    if read_counts()["fused_precodec"] == 0:
+        raise AssertionError(f"{tag}: fused_precodec was not launched on the trainer's saves")
+    # run A's state stays on the card for the comparison with run B's
+    state_a = leaves(a.state)
+    out.update(names=[n for n, _ in state_a], digests=device_digests(a.state),
+               cursor=int(a.data.state_tree()["batch_idx"]), losses=a.losses,
+               step_s=a.step_s, saves=a.saves)
     del a
+    gc.collect()
+    release_host_cache(f"after {tag}'s run A")
+
+    drop_l1(manager(root, theta_like(4, 4))).close()
+    t0 = time.perf_counter()
+    b = run(cfg, data_cfg, tcfg, ckpt, steps=steps, ckpt_every=0, resume=resume,
+            device=DEVICE, seed=SEED + 1, log=lambda line: log(f"{tag} B {line}"))
+    out.update(b=b, run_b_s=time.perf_counter() - t0)
+    losses_a = out["losses"]
+    if b.restored_step != resume or \
+            np.asarray(b.losses).tobytes() != np.asarray(losses_a[resume:]).tobytes():
+        raise AssertionError(f"{tag} replay: restored {b.restored_step}, losses {b.losses} "
+                             f"!= {losses_a[resume:]}")
+    if b.restore_read is None or b.restore_read.bytes_read == 0:
+        raise AssertionError(f"{tag}: run B did not restore step {resume} from the PFS")
+    same_bytes(leaves(b.state), state_a, f"{tag} replayed step {steps}")
+    if not np.array_equal(device_digests(b.state), out["digests"]):
+        raise AssertionError(f"{tag}: digests of the replayed step {steps} differ")
+    if int(b.data.state_tree()["batch_idx"]) != out["cursor"]:
+        raise AssertionError(f"{tag}: the replay ends at another batch cursor")
+    out["launches"] = read_counts()
+    if keep_a:
+        out["state_a"] = state_a
+    del state_a
     gc.collect()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    card = report.get("card")
+    for st in out["saves"]:
+        fl = st.flush
+        log(f"{tag} save step {st.step}: stage_s={st.stage_s:.4f} "
+            f"stage_wait_s={st.stage_wait_s:.4f} "
+            f"window_s={st.encode_time + st.local_time:.4f} "
+            f"flush_s={fl.duration if fl else None} "
+            f"flush_bytes={fl.bytes_written if fl else None} "
+            f"stored/raw={st.stored_bytes / st.raw_bytes:.6f} [{card}]")
+    log(f"{tag} losses {losses_a}; restore_s: step {resume} into run B={b.restore_s:.3f} "
+        f"({b.restore_read.bytes_read} bytes from the PFS); run A {out['run_a_s']:.1f} s, "
+        f"run B {out['run_b_s']:.1f} s [{card}]")
+    replayed = f"step {steps}" if resume + 1 == steps else f"steps {resume + 1}-{steps}"
+    log(f"{tag} run B's {replayed} equal run A's byte for byte (losses; params, mu, nu, "
+        f"count, step), device digest for digest, cursor for cursor")
+    return out
 
-    # run B restores step 2 from the PFS: L1 of the 4 saving nodes is gone
-    drop_l1(manager(root, theta_like(4, 4))).close()
-    t0 = time.perf_counter()
-    b = run(cfg, data_cfg, tcfg, ckpt, steps=4, ckpt_every=0, resume=2, device=DEVICE,
-            seed=SEED + 1, log=tagged("B"))
-    run_b_s = time.perf_counter() - t0
-    if b.restored_step != 2 or b.losses != losses_a[2:]:
-        raise AssertionError(f"phase4 replay: restored {b.restored_step}, "
-                             f"losses {b.losses} != {losses_a[2:]}")
-    if b.restore_read is None or b.restore_read.bytes_read == 0:
-        raise AssertionError("phase4: run B did not restore step 2 from the PFS")
-    assert_equal_to_host(b.state, copy, "phase4 replayed step 4")
-    if not np.array_equal(device_digests(b.state), digests):
-        raise AssertionError("phase4: digests of the replayed step 4 differ")
-    if int(b.data.state_tree()["batch_idx"]) != cursor:
-        raise AssertionError("phase4: the replay ends at another batch cursor")
+
+def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
+    """The port's trainer at qwen1.5-0.5b's full width (``model_cfg``'s
+    depth; ``main`` passes ``PHASE4_LAYERS``, the default is all 24)
+    through :func:`train_and_replay`: run A trains steps 1-4 with a device
+    pre-codec save every 2 steps (the fused pass runs on the trainer's own
+    saves); run B restores step 2 from the PFS with L1 dropped and replays
+    steps 3-4 byte for byte. Step 4 restored from the PFS must equal run
+    A's too. Before run A, one step at the same widths and sequence length
+    (two layers) is held against the port's CPU step. Returns the kernel
+    launches counted over both runs, and the device digests of run A's
+    step-4 params (phase 5 holds the served params to them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.train import OptConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or get_config("qwen1.5-0.5b")
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=4), remat=True)
+    root = tmp / "train"
+    log(f"phase4 model: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} params={cfg.param_dtype} "
+        f"compute={cfg.compute_dtype} batch={global_batch}x{seq_len} remat=True")
+
+    ref = phase4_reference_step(cfg, tcfg, seq_len, report)
+    tr = train_and_replay(cfg, root, report, "phase4", seq_len=seq_len,
+                          global_batch=global_batch, steps=4, ckpt_every=2, keep_a=True)
+    b, digests = tr.pop("b"), tr["digests"]
+    params_digests = digests[[n.startswith("['params']") for n in tr["names"]]]
+
+    # step 4 from the PFS, elastic 16 -> 3 ranks, L1 of all 4 saving nodes dropped
+    tree, restore4_s, _ = restore_step(root, 4, meta_train_target(cfg))
+    same_bytes(leaves(tree["train"]), tr.pop("state_a"), "phase4 restored step 4")
+    if not np.array_equal(device_digests(tree["train"]), digests):
+        raise AssertionError("phase4: digests of the restored step 4 differ")
+    if int(tree["data"]["batch_idx"]) != tr["cursor"]:
+        raise AssertionError("phase4: restored step 4 has another batch cursor")
+    del tree
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    losses_a, step_s, saves, peak = tr["losses"], tr["step_s"], tr["saves"], tr["peak"]
+    run_a_s, run_b_s = tr["run_a_s"], tr["run_b_s"]
     restore2_s, replay_s = b.restore_s, b.step_s
-    del copy
     with deterministic_algorithms():
         profile = profile_train_step(cfg, tcfg, b.state, b.data)
-    del b
+    del b, tr
     launches = read_counts()
 
     # run A's steps 2-4 share the host with the checkpoint (the stage's
@@ -1330,20 +1443,12 @@ def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
     )
     row["wall_s"] = time.perf_counter() - t_phase
     report["phase4"] = row
-    log(f"phase4 losses {losses_a} finite=True; replayed steps 3-4 {losses_a[2:]}")
     log(f"phase4 step_ms (run A steps 2-4, synchronised, checkpoint in flight)={ms:.3f} "
         f"tokens_per_s={row['tokens_per_s']:.1f}; replay step_ms (run B steps 3-4, no "
         f"checkpoint)={replay_ms:.3f} tokens_per_s={row['replay_tokens_per_s']:.1f}; "
         f"peak_device_bytes={peak} [{report.get('card')}]")
-    for st in row["saves"]:
-        log(f"phase4 save step {st['step']}: stage_s={st['stage_s']:.4f} "
-            f"stage_wait_s={st['stage_wait_s']:.4f} window_s={st['blocking_window_s']:.4f} "
-            f"flush_s={st['flush_s']} stored/raw={st['stored_over_raw']:.6f} [{report.get('card')}]")
-    log(f"phase4 restore_s: step 2 into run B={restore2_s:.3f} step 4 (check)={restore4_s:.3f}; "
-        f"run A {run_a_s:.1f} s, run B {run_b_s:.1f} s, wall {row['wall_s']:.1f} s "
-        f"[{report.get('card')}]")
-    log("phase4 run B's step 4 equals run A's byte for byte (params, mu, nu, count, step), "
-        "device digest for digest, cursor for cursor; so does step 4 restored from the PFS")
+    log(f"phase4 restore_s: step 4 (check)={restore4_s:.3f}, equal to run A's byte for "
+        f"byte; wall {row['wall_s']:.1f} s [{report.get('card')}]")
     if "busy_share" in profile:
         log(f"phase4 profiled step wall {profile['wall_s'] * 1e3:.3f} ms against the clean "
             f"replayed steps' {replay_ms:.3f} ms; device busy {profile['busy_ms']:.3f} of "
@@ -1364,6 +1469,13 @@ def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
 # cache's k and v within 2 of them in norm, relative. A wrong position,
 # mask or cache write is off by far more.
 SERVE_REF_TOL = {"logits": 4 * 2.0 ** -8, "cache": 2 * 2.0 ** -8}
+# the same in float32 compute: the xLSTM's mLSTM divides by a normaliser
+# that can be small, so its bf16 logits move by 1-3 % of their largest
+# between two orders of rounding (prefill and decode against a forward
+# on the CPU: 2.6e-2 at xlstm-350m's widths) where the transformer's move
+# by 0.8 %; in float32 the two agree to 8.5e-6 there, and a wrong state
+# handoff is off by far more than 1e-4
+SERVE_REF_TOL_F32 = {"logits": 1e-4, "cache": 1e-4}
 # the node-local decoded-chunk cache of phase 5's fleet: step 2's and
 # step 4's decoded params chunks (2 x 2.48 GB), so the cold start's second
 # replica and the swap onto step 4 (a delta on step 2) can hit it
@@ -1378,14 +1490,14 @@ SERVE_ROUTED_OTHERWISE_MAX = 0.25
 
 
 def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16, params=None,
-                     tag="phase5"):
+                     tag="phase5", tol=SERVE_REF_TOL):
     """Prefill of ``batch`` x ``prompt`` tokens (a VLM's patch embeddings,
     from a seed, first) then ``steps`` greedy decode steps of ``cfg`` at
     its full widths, depth cut to ``n_layers``, from one set of weights
     (``params``, a tree of tensors on any device, or else drawn from a
     seed), on the card and through the port's CPU, the CPU teacher-forced
-    on the card's tokens: every step's logits and the cache after prefill
-    and at the end within ``SERVE_REF_TOL``. For a MoE model, a step
+    on the card's tokens: every step's logits and the cache's float leaves
+    after prefill and at the end within ``tol`` (``SERVE_REF_TOL``). For a MoE model, a step
     whose held token (prefill: each row's last; decode: each row's) was
     routed otherwise on the two sides is reported and not held; every
     flipped slot must be a near tie (``ROUTER_TIE_TOL``), and at most
@@ -1399,7 +1511,7 @@ def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16,
     cfg = cfg.replace(n_layers=n_layers)
     model = get_model(cfg)
     if params is None:
-        params = model.init(torch.Generator().manual_seed(SEED), "cpu").state_tree()
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE).state_tree()
     r = np.random.default_rng(SEED)
     prompt_np = r.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
     inputs = {"tokens": torch.as_tensor(prompt_np)}
@@ -1416,14 +1528,14 @@ def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16,
         with torch.inference_mode(), moe_probe() as (routes, _):
             cache, lg = model.prefill(dev_params, {k: v.to(dev) for k, v in inputs.items()},
                                       s_max=s_max)
-            logits, caches, toks = [lg.float().cpu()], [[x.float().cpu() for x in cache[:2]]], []
+            logits, caches, toks = [lg.float().cpu()], [float_leaves(cache)], []
             for i in range(steps):
                 tok = lg.argmax(-1)[:, None].to(torch.int32) if forced is None else \
                     forced[i].to(dev)
                 toks.append(tok.cpu())
                 lg, cache = model.decode_step(dev_params, cache, tok)
                 logits.append(lg.float().cpu())
-            caches.append([x.float().cpu() for x in cache[:2]])
+            caches.append(float_leaves(cache))
         sync()
         out[dev] = (logits, caches, time.perf_counter() - t0, routes)
         forced = toks       # the CPU decodes the card's tokens
@@ -1447,15 +1559,15 @@ def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16,
                        their_logits_err=[logit_err[i] for i in otherwise])
     worst = max(logit_err[i] for i in held)
     row = dict(n_layers=n_layers, batch=batch, prompt=prompt, steps=steps, card_s=g_s,
-               cpu_s=c_s, logits_err=logit_err, cache_err=cache_err, tol=SERVE_REF_TOL,
+               cpu_s=c_s, logits_err=logit_err, cache_err=cache_err, tol=tol,
                held_steps=held, routing=routing)
     report[f"{tag}_reference".replace(" ", "_")] = row
     log(f"{tag} reference ({cfg.name} widths, {n_layers} layers, batch {batch}x{prompt}, "
         f"{steps} decode steps teacher-forced): card {g_s:.3f} s, cpu {c_s:.3f} s; "
         f"worst logits err {worst:.3e} of max|logit| over {len(held)} held steps "
-        f"(tol {SERVE_REF_TOL['logits']:g}), worst cache err {max(cache_err):.3e} relative "
-        f"(tol {SERVE_REF_TOL['cache']:g})")
-    bad = worst > SERVE_REF_TOL["logits"] or max(cache_err) > SERVE_REF_TOL["cache"]
+        f"(tol {tol['logits']:g}), worst cache err {max(cache_err):.3e} relative "
+        f"(tol {tol['cache']:g})")
+    bad = worst > tol["logits"] or max(cache_err) > tol["cache"]
     if routing is not None:
         log(f"{tag} reference routing, card against cpu: {routing['flipped']} of "
             f"{routing['slots']} (token, k) selections differ (largest gap "
@@ -1471,15 +1583,21 @@ def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16,
     return row
 
 
+def float_leaves(cache):
+    """A cache's floating-point leaves (a ``DecodeCache``'s k and v, a
+    recurrent state's carries and ring buffers) as float32 host copies."""
+    return [x.float().cpu() for _, x in leaves(cache) if x.is_floating_point()]
+
+
 def meta_train_target(cfg):
     """The structure of the trainer's checkpoint (train state + data
     cursor) on the meta device: a restore reads names, not values."""
     import torch
 
-    from repro_torch.models.transformer import Transformer
+    from repro_torch.models import get_model
 
     def params():
-        return Transformer(cfg, device="meta").state_tree()
+        return get_model(cfg).param_struct()
 
     def zero():
         return torch.zeros((), dtype=torch.int32, device="meta")
@@ -1495,6 +1613,86 @@ def cuda_ms(fn, reps=5):
     if DEVICE != "cuda":
         return None
     return time_ms(fn, reps=reps, warmup=1)
+
+
+def serve_snapshot(srv, root, report, tag, *, tokens, want, s_max):
+    """A serving snapshot and its resume on ``srv`` (a ``Server``):
+    prefill of ``tokens`` (on the card) and half of ``want``'s greedy
+    tokens decoded step by step, each timed and each token equal to
+    ``want``'s (``Server.generate``'s); then the snapshot (params, the
+    cache or recurrent state, the next token) saved with the device
+    pre-codec under ``root`` and restored from the PFS (L1 dropped, another
+    geometry) from the model's meta templates into a fresh server, which
+    must emit the other half of ``want`` identically. Returns the
+    snapshot's row (with ``prefill_ms`` and ``decode_ms_per_token``) and
+    the kernel launches of the save and the restore."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import theta_like
+    from repro_torch.serve import Server
+
+    model, batch, new = srv.model, tokens.shape[0], want.shape[1]
+    half = new // 2
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(srv.params, {"tokens": tokens}, s_max=s_max)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        tok, first = lg.argmax(-1)[:, None].to(torch.int32), []
+        t0 = time.perf_counter()
+        for _ in range(half):
+            first.append(tok[:, 0])
+            lg, cache = model.decode_step(srv.params, cache, tok)
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+        sync()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / half
+    if not np.array_equal(torch.stack(first, 1).cpu().numpy(), want[:, :half]):
+        raise AssertionError(f"{tag}: the decode loop differs from Server.generate")
+    cache_type = type(cache)
+    smgr = manager(root, theta_like(4, 4))
+    before = read_counts()
+    st = smgr.save(1, srv.snapshot_state(cache) | {"tok": tok})
+    smgr.wait()
+    if smgr.flush_errors or read_counts()["fused_precodec"] == before["fused_precodec"]:
+        raise AssertionError(f"{tag} snapshot: flush errors {smgr.flush_errors} or no "
+                             f"fused_precodec launch")
+    smgr.close()
+    del cache, tok
+    target = {"params": model.param_struct(), "cache": model.cache_struct(batch, s_max),
+              "tok": torch.empty((batch, 1), dtype=torch.int32, device="meta")}
+    rmgr = drop_l1(manager(root, theta_like(2, 1)))
+    t0 = time.perf_counter()
+    _, got = rmgr.restore(target)
+    sync()
+    restore_s = time.perf_counter() - t0
+    rmgr.close()
+    if type(got["cache"]) is not cache_type or \
+            {x.device.type for _, x in leaves(got)} != {torch.device(DEVICE).type}:
+        raise AssertionError(f"{tag}: the restored snapshot is not a {cache_type.__name__} "
+                             f"on the card")
+    fresh = Server(model, got["params"], srv.cfg)
+    cache, tok, rest = got["cache"], got["tok"], []
+    with torch.inference_mode():
+        for _ in range(new - half):
+            rest.append(tok[:, 0])
+            lg, cache = model.decode_step(fresh.params, cache, tok)
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+    if not np.array_equal(torch.stack(rest, 1).cpu().numpy(), want[:, half:]):
+        raise AssertionError(f"{tag}: the resumed server emitted other tokens")
+    launches = {k: v - before[k] for k, v in read_counts().items()}
+    del got, cache, fresh
+    fl = st.flush
+    row = dict(after=half, stage_s=st.stage_s, window_s=st.encode_time + st.local_time,
+               flush_s=fl.duration if fl else None, restore_s=restore_s,
+               raw_bytes=st.raw_bytes, stored_bytes=st.stored_bytes,
+               prefill_ms=1e3 * prefill_s, decode_ms_per_token=decode_ms)
+    log(f"{tag} snapshot after {half} tokens ({st.raw_bytes} bytes): stage_s={st.stage_s:.4f} "
+        f"window_s={row['window_s']:.4f} flush_s={row['flush_s']} restore_s={restore_s:.3f}; "
+        f"the fresh server emits the other {new - half} tokens identically "
+        f"[{report.get('card')}]")
+    return row, launches
 
 
 def phase5(tmp, report, step4_digests, *, model_cfg=None, batch=8, prompt=2048, new=64,
@@ -1517,8 +1715,7 @@ def phase5(tmp, report, step4_digests, *, model_cfg=None, batch=8, prompt=2048, 
     from repro_torch.configs import get_config
     from repro_torch.core import theta_like
     from repro_torch.models import get_model
-    from repro_torch.models.transformer import DecodeCache, Transformer
-    from repro_torch.serve import FleetConfig, ServeConfig, ServeFleet, Server
+    from repro_torch.serve import FleetConfig, ServeConfig, ServeFleet
 
     t_phase = time.perf_counter()
     cfg = model_cfg or get_config("qwen1.5-0.5b")
@@ -1537,7 +1734,7 @@ def phase5(tmp, report, step4_digests, *, model_cfg=None, batch=8, prompt=2048, 
 
     # -- cold start: two replicas from step 2, on a 2x1 serving geometry --
     mgr = manager(root, theta_like(2, 1))
-    fleet = ServeFleet(model, mgr, Transformer(cfg, device="meta").state_tree(), prefix=prefix,
+    fleet = ServeFleet(model, mgr, model.param_struct(), prefix=prefix,
                        cfg=FleetConfig(n_servers=2, serve=scfg, cache_bytes=SERVE_CACHE_BYTES))
     cs = fleet.cold_start(step=2)
     sync()
@@ -1666,57 +1863,8 @@ def phase5(tmp, report, step4_digests, *, model_cfg=None, batch=8, prompt=2048, 
         f"A's step-4 params [{report.get('card')}]")
 
     # -- snapshot resume: 32 tokens, snapshot, restore, 32 more ----------
-    half = new // 2
-    uninterrupted = v1[0]
-    with torch.inference_mode():
-        cache, lg = model.prefill(srv.params, {"tokens": dev_prompt}, s_max=prompt + new)
-        tok = lg.argmax(-1)[:, None].to(torch.int32)
-        first = []
-        for _ in range(half):
-            first.append(tok[:, 0])
-            lg, cache = model.decode_step(srv.params, cache, tok)
-            tok = lg.argmax(-1)[:, None].to(torch.int32)
-    if not np.array_equal(torch.stack(first, 1).cpu().numpy(), uninterrupted[:, :half]):
-        raise AssertionError("phase5: the decode loop differs from Server.generate")
-    snap_root = tmp / "serve_snapshot"
-    smgr = manager(snap_root, theta_like(4, 4))
-    before = read_counts()["fused_precodec"]
-    st = smgr.save(1, srv.snapshot_state(cache) | {"tok": tok})
-    smgr.wait()
-    if smgr.flush_errors or read_counts()["fused_precodec"] == before:
-        raise AssertionError(f"phase5 snapshot: flush errors {smgr.flush_errors} or no "
-                             f"fused_precodec launch")
-    smgr.close()
-    del cache, tok
-    target = {"params": Transformer(cfg, device="meta").state_tree(),
-              "cache": model.cache_struct(batch, prompt + new),
-              "tok": torch.empty((batch, 1), dtype=torch.int32, device="meta")}
-    rmgr = drop_l1(manager(snap_root, theta_like(2, 1)))
-    t0 = time.perf_counter()
-    _, got = rmgr.restore(target)
-    sync()
-    restore_s = time.perf_counter() - t0
-    rmgr.close()
-    if not isinstance(got["cache"], DecodeCache) or got["cache"].k.device.type != DEVICE:
-        raise AssertionError("phase5: the restored cache is not a DecodeCache on the card")
-    fresh = Server(model, got["params"], scfg)
-    cache, tok, rest = got["cache"], got["tok"], []
-    with torch.inference_mode():
-        for _ in range(new - half):
-            rest.append(tok[:, 0])
-            lg, cache = model.decode_step(fresh.params, cache, tok)
-            tok = lg.argmax(-1)[:, None].to(torch.int32)
-    if not np.array_equal(torch.stack(rest, 1).cpu().numpy(), uninterrupted[:, half:]):
-        raise AssertionError("phase5: the resumed server emitted other tokens")
-    fl = st.flush
-    row["snapshot"] = dict(stage_s=st.stage_s, window_s=st.encode_time + st.local_time,
-                           flush_s=fl.duration if fl else None, restore_s=restore_s,
-                           raw_bytes=st.raw_bytes, stored_bytes=st.stored_bytes)
-    log(f"phase5 snapshot after {half} tokens ({st.raw_bytes} bytes): "
-        f"stage_s={st.stage_s:.4f} window_s={st.encode_time + st.local_time:.4f} "
-        f"flush_s={row['snapshot']['flush_s']} restore_s={restore_s:.3f}; the fresh server "
-        f"emits the other {new - half} tokens identically [{report.get('card')}]")
-    del got, cache, fresh
+    row["snapshot"], _ = serve_snapshot(srv, tmp / "serve_snapshot", report, "phase5",
+                                        tokens=dev_prompt, want=v1[0], s_max=prompt + new)
     fleet.close()
     mgr.close()
 
@@ -1953,7 +2101,7 @@ def phase6(tmp, pool, report, *, n_layers=PHASE6_LAYERS):
         sync()
         row["restore_s"][name] = time.perf_counter() - t0
         assert got_step == step
-        assert_equal_to_host(tree, copies.pop(name), f"phase6 {name} step {step}")
+        same_bytes(leaves(tree), copies.pop(name), f"phase6 {name} step {step}")
         if not np.array_equal(device_digests(tree), pre[name]):
             raise AssertionError(f"phase6: {name} step {step}: restored digests differ")
         del tree
@@ -2061,13 +2209,8 @@ def phase7_moe(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4, ref
     decode steps from run B's params against the CPU
     (:func:`phase5_reference`), and profiles of one clean step and of one
     MoE FFN. Returns the kernel launches counted over runs A and B."""
-    import numpy as np
-    import torch
-
     from repro_torch.configs import get_config
-    from repro_torch.core import CheckpointConfig, theta_like
-    from repro_torch.data import DataConfig
-    from repro_torch.launch.train import deterministic_algorithms, run
+    from repro_torch.launch.train import deterministic_algorithms
     from repro_torch.models import get_model
     from repro_torch.models.moe import capacity
     from repro_torch.train import OptConfig, TrainConfig, build_train_step
@@ -2075,90 +2218,40 @@ def phase7_moe(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4, ref
     t_phase = time.perf_counter()
     cfg = model_cfg or get_config("qwen2-moe-a2.7b").replace(n_layers=MOE_LAYERS)
     m = cfg.moe
-    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                          global_batch=global_batch, seed=SEED)
     tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=3), remat=True)
-    root = tmp / "moe"
-    # every save an anchor (delta_every=1): the trainer also saves its last
-    # step, 3, and a delta of this state with every chunk dirty took 104.5 s
-    # of window against the anchor's 32.3 s (H100 80GB HBM3, 700 W; PERF.md)
-    ckpt = CheckpointConfig(
-        root=str(root), cluster=theta_like(4, 4), strategy="stripe_aligned",
-        codec="zstd+delta", chunk_size=CHUNK_SIZE, device_precodec=True,
-        precodec="none", delta_every=1, device=DEVICE,
-    )
     log(f"phase7 moe model: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} experts={m.n_experts} top_k={m.top_k} "
         f"expert_d_ff={m.expert_d_ff} shared={m.n_shared}x{m.shared_d_ff} "
         f"vocab={cfg.vocab_size} params={cfg.param_dtype} compute={cfg.compute_dtype} "
         f"batch={global_batch}x{seq_len} capacity={capacity(m, seq_len)} remat=True")
 
-    def tagged(tag):
-        return lambda line: log(f"phase7 moe {tag} {line}")
-
     ref = phase4_reference_step(cfg, tcfg, report=report, tag="phase7 moe",
                                 **dict(dict(seq_len=256, n_layers=cfg.n_layers, global_batch=2),
                                        **(ref_kw or {})))
-    gc.collect()
-    reset_counts()
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    host_before = host_available_gb()
-    t0 = time.perf_counter()
-    marks = [0]     # len(auxes) as each step ends: the next step's records start there
+    marks, auxes, host_gb = [0], [], []  # marks: len(auxes) as each step ends
+
+    def around_a(go):
+        host_gb.append(host_available_gb())
+        with moe_probe() as (_, recorded):
+            auxes.append(recorded)
+            a = go()
+        host_gb.append(host_available_gb())
+        return a
 
     def log_a(line):
         if line.startswith("step"):
-            marks.append(len(auxes))
-        tagged("A")(line)
+            marks.append(len(auxes[0]))
 
-    with moe_probe() as (_, auxes):
-        a = run(cfg, data_cfg, tcfg, ckpt, steps=3, ckpt_every=2, device=DEVICE,
-                seed=SEED, log=log_a)
-    run_a_s = time.perf_counter() - t0
+    # every save an anchor (delta_every=1): the trainer also saves its last
+    # step, 3, and a delta of this state with every chunk dirty took 104.5 s
+    # of window against the anchor's 32.3 s (H100 80GB HBM3, 700 W; PERF.md)
+    tr = train_and_replay(cfg, tmp / "moe", report, "phase7 moe", seq_len=seq_len,
+                          global_batch=global_batch, steps=3, ckpt_every=2,
+                          ckpt_kw=dict(delta_every=1), around_a=around_a, log_a=log_a)
+    b, auxes = tr.pop("b"), auxes[0]
+    losses_a, step_s, saves, peak = tr["losses"], tr["step_s"], tr["saves"], tr["peak"]
+    run_a_s, run_b_s, launches = tr["run_a_s"], tr["run_b_s"], tr["launches"]
     aux_a = [sum(auxes[i : i + cfg.n_layers]) for i in marks[:-1]]
-    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
-    host_after = host_available_gb()
-    if a.flush_errors:
-        raise AssertionError(f"phase7 moe flush errors: {a.flush_errors}")
-    if not np.isfinite(a.losses).all():
-        raise AssertionError(f"phase7 moe loss is not finite: {a.losses}")
-    if read_counts()["fused_precodec"] == 0:
-        raise AssertionError("phase7 moe: fused_precodec was not launched on the trainer's saves")
-    # run A's state stays on the card for the comparison with run B's
-    state_a, digests = a.state, device_digests(a.state)
-    cursor = int(a.data.state_tree()["batch_idx"])
-    losses_a, step_s, saves = a.losses, a.step_s, a.saves
-    del a
-    gc.collect()
-    release_host_cache("after phase 7's run A")
-
-    drop_l1(manager(root, theta_like(4, 4))).close()
-    t0 = time.perf_counter()
-    b = run(cfg, data_cfg, tcfg, ckpt, steps=3, ckpt_every=0, resume=2, device=DEVICE,
-            seed=SEED + 1, log=tagged("B"))
-    run_b_s = time.perf_counter() - t0
-    if b.restored_step != 2 or b.losses != losses_a[2:]:
-        raise AssertionError(f"phase7 moe replay: restored {b.restored_step}, "
-                             f"losses {b.losses} != {losses_a[2:]}")
-    if b.restore_read is None or b.restore_read.bytes_read == 0:
-        raise AssertionError("phase7 moe: run B did not restore step 2 from the PFS")
-    got, want = leaves(b.state), leaves(state_a)
-    if [n for n, _ in got] != [n for n, _ in want]:
-        raise AssertionError("phase7 moe: run B's state has other leaves")
-    for (n, x), (_, y) in zip(got, want):
-        if x.dtype != y.dtype or not torch.equal(x, y):
-            raise AssertionError(f"phase7 moe: replayed step 3 differs from run A's at {n}")
-    if not np.array_equal(device_digests(b.state), digests):
-        raise AssertionError("phase7 moe: digests of the replayed step 3 differ")
-    if int(b.data.state_tree()["batch_idx"]) != cursor:
-        raise AssertionError("phase7 moe: the replay ends at another batch cursor")
-    launches = read_counts()
-    del state_a, got, want
-    gc.collect()
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
 
     serve = phase5_reference(cfg, report, tag="phase7 moe", params=b.state["params"],
                              **dict(dict(n_layers=cfg.n_layers, batch=2, prompt=2048, steps=16),
@@ -2189,7 +2282,7 @@ def phase7_moe(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4, ref
         losses=losses_a, aux=aux_a, ce=[x - y for x, y in zip(losses_a, aux_a)],
         step_s=step_s, replay_step_s=replay_s, clean_step_ms=ms,
         clean_tokens_per_s=tokens / ms * 1e3,
-        peak_device_bytes=peak, host_available_gb=[host_before, host_after],
+        peak_device_bytes=peak, host_available_gb=host_gb,
         run_a_s=run_a_s, run_b_s=run_b_s, restore_step2_s=restore2_s,
         saves=[step_row(st, None, None) for st in saves], launches=launches,
         profile=profile, moe_ffn_profile=ffn_profile, reference_step_err=ref["err"],
@@ -2199,23 +2292,14 @@ def phase7_moe(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4, ref
     )
     row["wall_s"] = time.perf_counter() - t_phase
     report["phase7_moe"] = row
-    log(f"phase7 moe losses {losses_a} (ce {row['ce']}, aux {aux_a}) finite=True; "
-        f"replayed step 3 {losses_a[2:]}")
+    log(f"phase7 moe losses {losses_a} (ce {row['ce']}, aux {aux_a}) finite=True")
     log(f"phase7 moe step_ms (run A, synchronised, checkpoint in flight) "
         f"{[round(x * 1e3, 3) for x in step_s]}; run B's replayed step 3 "
         f"{replay_s[0] * 1e3:.3f} ms; clean step_ms (run B's step 4, no checkpoint)="
         f"{ms:.3f} tokens_per_s={row['clean_tokens_per_s']:.1f}; "
         f"peak_device_bytes={peak}; host MemAvailable GB before/after run A "
         f"{row['host_available_gb']} [{card}]")
-    for st in row["saves"]:
-        log(f"phase7 moe save step {st['step']}: stage_s={st['stage_s']:.4f} "
-            f"stage_wait_s={st['stage_wait_s']:.4f} window_s={st['blocking_window_s']:.4f} "
-            f"flush_s={st['flush_s']} flush_bytes={st['flush_bytes']} "
-            f"stored/raw={st['stored_over_raw']:.6f} [{card}]")
-    log(f"phase7 moe restore_s: step 2 into run B={restore2_s:.3f}; run A {run_a_s:.1f} s, "
-        f"run B {run_b_s:.1f} s, wall {row['wall_s']:.1f} s [{card}]")
-    log("phase7 moe run B's step 3 equals run A's byte for byte (params, mu, nu, count, step), "
-        "device digest for digest, cursor for cursor")
+    log(f"phase7 moe wall {row['wall_s']:.1f} s [{card}]")
     if "busy_share" in profile:
         log(f"phase7 moe profiled step wall {profile['wall_s'] * 1e3:.3f} ms against the clean "
             f"step's {ms:.3f} ms; device busy {profile['busy_ms']:.3f} of "
@@ -2289,7 +2373,7 @@ def phase7_vlm(tmp, report, *, model_cfg=None, seq_len=1472, global_batch=4, ref
     tree, restore_s, rr = restore_step(root, 1, {"train": a.state, "data": a.data.state_tree()})
     if rr is None or rr.bytes_read == 0:
         raise AssertionError("phase7 vlm: the restore did not read the PFS")
-    assert_equal_to_host(tree["train"], copy, "phase7 vlm restored step 1")
+    same_bytes(leaves(tree["train"]), copy, "phase7 vlm restored step 1")
     if not np.array_equal(device_digests(tree["train"]), digests):
         raise AssertionError("phase7 vlm: digests of the restored step 1 differ")
     if int(tree["data"]["batch_idx"]) != cursor:
@@ -2333,6 +2417,354 @@ def phase7(tmp, report):
 
 
 
+# -- phase 8 --------------------------------------------------------------
+
+# xlstm-350m (src/repro/configs/xlstm_350m.py) at full depth. The
+# reference's sLSTM at these widths is chaotic (a one-ulp change of its
+# input grows about twice a token and is of order 1 after some 40 tokens),
+# and its backward grows as fast with the sequence, on the CPU as on the
+# card and in the JAX package as in the port (tests/test_torch_xlstm.py;
+# ROADMAP Queue 3): at 4 x 2048 tokens run A's gradients were NaN from
+# step 1, and gradient_growth reports the 24 layers' gradient norm at
+# XLSTM_GROWTH's lengths (PERF.md). So the sLSTM is held to the CPU in a
+# period's step of 8 tokens (the CPU tests hold it to JAX over its first
+# 8), the trainer runs 64-token sequences (its 4 x 2048 = 8,192 tokens as
+# 128 x 64), and the mLSTM's chunked form is held to the CPU at 2,048 on
+# the period's three mLSTMs.
+XLSTM_REF_LAYERS = 3
+XLSTM_PERIOD_REF = dict(global_batch=8, seq_len=8)
+XLSTM_TRAIN = dict(global_batch=128, seq_len=64)
+XLSTM_GROWTH = (64, 128, 256)     # lengths of gradient_growth's report
+# recurrentgemma-2b (src/repro/configs/recurrentgemma_2b.py) cut to one
+# period (rglru, rglru, attn) of its 26 layers: 912,320,000 parameters, a
+# 10.9 GB train state. The full state is 34.7 GB, and a pre-codec stage
+# holds about four times its state
+GRIFFIN_LAYERS = 3
+
+
+def phase8_train(cfg, tmp, report, tag, *, seq_len, global_batch, steps):
+    """:func:`train_and_replay` of ``cfg`` with one
+    save, an anchor of step ``steps - 1`` staged beside the last step, as
+    phase 8's row; returns it and run B. The last step is not saved: a
+    save of griffin's 10.9 GB state cost 22.6-39.1 s of window and 13.4 s
+    of flush (H100 80GB HBM3, 700.00 W; PERF.md), and run B replays it."""
+    tr = train_and_replay(cfg, tmp / tag.split()[-1], report, tag, seq_len=seq_len,
+                          global_batch=global_batch, steps=steps, ckpt_every=steps - 1,
+                          save_last=False, ckpt_kw=dict(delta_every=1))
+    b = tr.pop("b")
+    clean_ms = 1e3 * b.step_s[0]
+    row = dict(model=cfg.name, n_layers=cfg.n_layers, batch=global_batch, seq_len=seq_len,
+               losses=tr["losses"], step_s=tr["step_s"], replay_step_ms=clean_ms,
+               replay_tokens_per_s=global_batch * seq_len / clean_ms * 1e3,
+               peak_device_bytes=tr["peak"], run_a_s=tr["run_a_s"], run_b_s=tr["run_b_s"],
+               restore_s=b.restore_s, restore_bytes_read=b.restore_read.bytes_read,
+               state_bytes=sum(t.numel() * t.element_size() for _, t in leaves(b.state)),
+               saves=[step_row(st, None, None) for st in tr["saves"]],
+               launches=tr["launches"])
+    log(f"{tag} step_ms (run A, synchronised, checkpoint beside) "
+        f"{[round(x * 1e3, 3) for x in tr['step_s']]}; replayed step {steps} (run B, no "
+        f"checkpoint) {clean_ms:.3f} ms, tokens_per_s={row['replay_tokens_per_s']:.1f}; "
+        f"peak_device_bytes={tr['peak']}; state {row['state_bytes']} bytes "
+        f"[{report.get('card')}]")
+    return row, b
+
+
+def teacher_forcing(cfg, params, report, tag, *, batch, prompt, steps, tol=SERVE_REF_TOL):
+    """Prefill of ``batch`` x ``prompt`` tokens (from a seed) and
+    ``steps`` greedy decode steps on the card, against one forward pass
+    over the prompt and the emitted tokens: each step's logits within
+    ``tol["logits"]`` of the forward's largest at its position (the two
+    round in other orders)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    toks = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32), device=DEVICE)
+    with torch.inference_mode():
+        cache, lg = model.prefill(params, {"tokens": toks})
+        dec, out = [lg.float()], []
+        for _ in range(steps):
+            out.append(lg.argmax(-1)[:, None].to(torch.int32))
+            lg, cache = model.decode_step(params, cache, out[-1])
+            dec.append(lg.float())
+        del cache
+        full, _ = model.forward(params, {"tokens": torch.cat([toks, *out], dim=1)})
+        err = [float((d - f.float()).abs().max() / f.float().abs().max())
+               for d, f in zip(dec, full[:, prompt - 1:].unbind(1))]
+    del full
+    report[f"{tag}_teacher_forcing".replace(" ", "_")] = dict(
+        n_layers=cfg.n_layers, batch=batch, prompt=prompt, steps=steps, logits_err=err)
+    log(f"{tag} decode against teacher forcing on the card ({cfg.n_layers} layers, batch "
+        f"{batch}x{prompt}, {steps} steps): worst logits err {max(err):.3e} of max|logit| "
+        f"(tol {tol['logits']:g})")
+    if not max(err) <= tol["logits"]:
+        raise AssertionError(f"{tag}: decode differs from teacher forcing: {err}")
+    return err
+
+
+def phase8_serve(cfg, params, tmp, report, tag, *, batch, prompt, new):
+    """``Server.generate`` of ``batch`` x ``prompt`` tokens (from a seed)
+    and ``new`` greedy tokens, then :func:`serve_snapshot` after half of
+    them (its prefill and decode steps timed). Returns the phase's row and
+    the snapshot's kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeConfig, Server
+
+    model = get_model(cfg)
+    prompt_np = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    srv = Server(model, params, ServeConfig(max_new_tokens=new))
+    sync()
+    t0 = time.perf_counter()
+    want, _ = srv.generate({"tokens": prompt_np})
+    generate_s = time.perf_counter() - t0
+    snap, launches = serve_snapshot(srv, tmp / f"{tag.split()[-1]}_snapshot", report, tag,
+                                    tokens=torch.as_tensor(prompt_np, device=DEVICE),
+                                    want=want, s_max=prompt + new)
+    decode_ms = snap.pop("decode_ms_per_token")
+    row = dict(batch=batch, prompt=prompt, new=new, generate_s=generate_s,
+               prefill_ms=snap.pop("prefill_ms"), decode_ms_per_token=decode_ms,
+               decode_tokens_per_s=batch / decode_ms * 1e3, snapshot=snap)
+    log(f"{tag} generate batch {batch}x{prompt} +{new} tokens: {generate_s:.3f} s; prefill "
+        f"{row['prefill_ms']:.3f} ms, decode {decode_ms:.3f} ms a token "
+        f"({row['decode_tokens_per_s']:.1f} tokens/s) [{report.get('card')}]")
+    return row, launches
+
+
+def timed_step(cfg, global_batch, seq_len, *, profile_tag=None):
+    """One synchronised train step of ``cfg`` (a fresh state from the
+    seed) after one warm-up step, in seconds; with ``profile_tag`` a
+    further step under :func:`profile_device`. Under deterministic
+    algorithms, as the trainer runs."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.models import get_model
+    from repro_torch.train import OptConfig, TrainConfig, build_train_step, init_train_state
+
+    model = get_model(cfg)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=3), remat=True)
+    state = init_train_state(model, torch.Generator(device=DEVICE).manual_seed(SEED), tcfg,
+                             DEVICE)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                      global_batch=global_batch, seed=SEED), device=DEVICE)
+    step = build_train_step(model, tcfg)
+    with deterministic_algorithms():
+        step(state, data.next())
+        batch = data.next()
+        sync()
+        t0 = time.perf_counter()
+        step(state, batch)
+        sync()
+        secs = time.perf_counter() - t0
+        batch = data.next()
+        prof = None if profile_tag is None else profile_device(
+            lambda: step(state, batch), profile_tag, f"one step of {cfg.n_layers} layers")
+    return secs, prof
+
+
+def gradient_growth(cfg, params, report, tag, *, lengths, batch=8):
+    """The norm of ``cfg``'s loss gradient at ``params`` over ``batch``
+    sequences (from a seed) of each of ``lengths``: how the sLSTM's
+    backward grows with the sequence. Measured, not held."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.utils.treelib import flatten_with_names, unflatten
+
+    model = get_model(cfg)
+    named, treedef = flatten_with_names(params)
+    xs = [x.detach().clone().requires_grad_() for _, x in named]
+    norms = {}
+    for s in lengths:
+        toks = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+            0, cfg.vocab_size, (batch, s)).astype(np.int32), device=DEVICE)
+        loss, _ = model.loss(unflatten(treedef, xs), {"tokens": toks})
+        grads = torch.autograd.grad(loss, xs)
+        norms[s] = float(torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])))
+        del loss, grads
+    del xs
+    gc.collect()
+    report[f"{tag}_gradient_norm_by_length".replace(" ", "_")] = norms
+    log(f"{tag} loss gradient norm of {cfg.n_layers} layers over {batch} sequences, by "
+        f"length: {norms} [{report.get('card')}]")
+    return norms
+
+
+def phase8_xlstm(tmp, report, *, model_cfg=None, train_kw=None, ref_kw=None,
+                 period_ref_kw=None, serve_kw=None):
+    """xlstm-350m at its published widths and full depth: float32 steps
+    against the CPU of one period (the sLSTM in it, ``XLSTM_PERIOD_REF``)
+    and of its three mLSTM layers at 1 x 2048 (the carried state crosses
+    a chunk boundary); the trainer's run A and run B
+    (:func:`phase8_train`, steps 1-3 at ``XLSTM_TRAIN``, every loss
+    finite) and the gradient norm by length; serving from run B's params
+    (generate 8 x 2048 + 16, a snapshot after 8 tokens); the sLSTM's
+    share of a step (a step of one period against one of its three
+    mLSTMs) and a device profile of one period; prefill and 16 decode
+    steps of the three mLSTM layers against the CPU and against teacher
+    forcing on the card. Returns the kernel launches of the main path
+    (the runs and the snapshot)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import OptConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or get_config("xlstm-350m")
+    tag = "phase8 xlstm"
+    train_kw = dict(XLSTM_TRAIN, **(train_kw or {}))
+    log(f"{tag} model: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads} kinds={''.join(k[0] for k in cfg.layer_kinds())} "
+        f"vocab={cfg.vocab_size} params={cfg.param_dtype} compute={cfg.compute_dtype} "
+        f"batch={train_kw['global_batch']}x{train_kw['seq_len']} remat=True")
+    period = len(cfg.pattern)
+    n_ref = min(XLSTM_REF_LAYERS, cfg.n_layers)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=3), remat=True)
+    # float32 compute: the mLSTM's output is nearly invariant to a common
+    # shift of its input gates' pre-activations (the stabiliser m absorbs
+    # it), so the gradients of b_i (and, less, of b_f, w_f, w_i and the
+    # conv) are residues of a cancellation, and bf16 rounding moved their
+    # mu by 0.03-2.06 of their norm between card and CPU (PERF.md)
+    f32 = cfg.replace(compute_dtype="float32")
+    ref_period = phase4_reference_step(f32, tcfg, report=report, tag=f"{tag} period", **dict(
+        dict(XLSTM_PERIOD_REF, n_layers=period), **(period_ref_kw or {})))
+    ref = phase4_reference_step(f32, tcfg, report=report, tag=tag, **dict(
+        dict(seq_len=2048, n_layers=n_ref, global_batch=1), **(ref_kw or {})))
+    row, b = phase8_train(cfg, tmp, report, tag, steps=3, **train_kw)
+    params = b.state["params"]
+    del b
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    growth = gradient_growth(cfg, params, report, tag, lengths=XLSTM_GROWTH)
+    gc.collect()
+    release_host_cache(f"after {tag}'s training")
+    # serving comes before the timed and profiled steps: after them the
+    # first generate, its prefill eager, took 25.1 s on an H100 (PERF.md)
+    serve, served = phase8_serve(cfg, params, tmp, report, tag, **dict(
+        dict(batch=8, prompt=2048, new=16), **(serve_kw or {})))
+    del params
+    gc.collect()
+    t_period, prof = timed_step(cfg.replace(n_layers=period), profile_tag=tag, **train_kw)
+    t_mlstm, _ = timed_step(cfg.replace(n_layers=period - 1), **train_kw)
+    n_slstm = cfg.layer_kinds().count("slstm")
+    slstm_s = t_period - t_mlstm
+    share = n_slstm * slstm_s / (row["replay_step_ms"] / 1e3)
+    row.update(period_step_s=t_period, mlstm_only_step_s=t_mlstm, slstm_layer_s=slstm_s,
+               slstm_share=share, profile=prof, reference_step_err=ref["err"],
+               period_reference_step_err=ref_period["err"], gradient_norm_by_length=growth)
+    card = report.get("card")
+    log(f"{tag} one period's step {t_period:.3f} s, its three mLSTMs' {t_mlstm:.3f} s: an "
+        f"sLSTM layer {slstm_s:.3f} s of a step, {n_slstm} of them {share:.4f} of the "
+        f"replayed step [{card}]")
+    if prof and "busy_share" in prof:
+        log(f"{tag} profiled period step: device busy {prof['busy_ms']:.3f} of "
+            f"{prof['device_span_ms']:.3f} ms ({prof['busy_share']:.4f}) [{card}]")
+
+    # the mLSTM's decode state against the CPU and teacher forcing, in
+    # float32 compute (SERVE_REF_TOL_F32), as the reference's own decode test
+    ref_cfg = cfg.replace(n_layers=n_ref, compute_dtype="float32")
+    skw = dict(dict(batch=2, prompt=2048, steps=16), **(serve_kw or {}))
+    skw.pop("new", None)
+    serve_ref = phase5_reference(ref_cfg, report, n_layers=n_ref, tag=tag,
+                                 tol=SERVE_REF_TOL_F32, **skw)
+    cut = get_model(ref_cfg).init(torch.Generator(device=DEVICE).manual_seed(SEED),
+                                  DEVICE).state_tree()
+    tf = teacher_forcing(ref_cfg, cut, report, tag, tol=SERVE_REF_TOL_F32, **skw)
+    del cut
+    launches = {k: row["launches"][k] + served[k] for k in served}
+    row.update(serve=serve, serve_reference_err=max(serve_ref["logits_err"]),
+               teacher_forcing_err=max(tf), launches=launches)
+    row["wall_s"] = time.perf_counter() - t_phase
+    report["phase8_xlstm"] = row
+    log(f"{tag} wall {row['wall_s']:.1f} s; launches: fused_precodec="
+        f"{launches['fused_precodec']} checksum={launches['checksum']} ({launches})")
+    return launches
+
+
+def phase8_griffin(tmp, report, *, model_cfg=None, seq_len=4096, global_batch=1, ref_kw=None,
+                   serve_kw=None):
+    """recurrentgemma-2b at its published widths, cut to one period of 3
+    layers: one step against the CPU (1 x 512 tokens); the trainer's run
+    A and run B (:func:`phase8_train`, steps 1-2 at batch 1 x 4096, past
+    the 2,048-token window); serving from run B's params (generate 4 x
+    4096 + 16, so the ring buffers wrap; a snapshot of params, ring
+    caches and RG-LRU state after 8 tokens) and decode against teacher
+    forcing on the card. Returns the kernel launches of the main path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import OptConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or get_config("recurrentgemma-2b").replace(n_layers=GRIFFIN_LAYERS)
+    tag = "phase8 griffin"
+    log(f"{tag} model: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.hd} d_ff={cfg.d_ff} "
+        f"window={cfg.window} vocab={cfg.vocab_size} (tied) params={cfg.param_dtype} "
+        f"compute={cfg.compute_dtype} batch={global_batch}x{seq_len} remat=True")
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=2), remat=True)
+    ref = phase4_reference_step(cfg, tcfg, report=report, tag=tag, **dict(
+        dict(seq_len=512, n_layers=cfg.n_layers, global_batch=1), **(ref_kw or {})))
+    row, b = phase8_train(cfg, tmp, report, tag, seq_len=seq_len, global_batch=global_batch,
+                          steps=2)
+    params = b.state["params"]
+    del b
+    gc.collect()
+    release_host_cache(f"after {tag}'s training")
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    skw = dict(dict(batch=4, prompt=seq_len, new=16), **(serve_kw or {}))
+    serve, served = phase8_serve(cfg, params, tmp, report, tag, **skw)
+    tf = teacher_forcing(cfg, params, report, tag, batch=skw["batch"], prompt=skw["prompt"],
+                         steps=skw["new"])
+    serve_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    del params
+    gc.collect()
+    launches = {k: row["launches"][k] + served[k] for k in served}
+    row.update(serve=serve, serve_peak_device_bytes=serve_peak, teacher_forcing_err=max(tf),
+               reference_step_err=ref["err"], launches=launches)
+    row["wall_s"] = time.perf_counter() - t_phase
+    report["phase8_griffin"] = row
+    log(f"{tag} serving peak_device_bytes={serve_peak}; wall {row['wall_s']:.1f} s "
+        f"[{report.get('card')}]; launches: fused_precodec={launches['fused_precodec']} "
+        f"checksum={launches['checksum']} ({launches})")
+    return launches
+
+
+def phase8(tmp, report):
+    """xlstm-350m (:func:`phase8_xlstm`), then recurrentgemma-2b
+    (:func:`phase8_griffin`); returns the kernel launches of both main
+    paths."""
+    import torch
+
+    from repro_torch.models.xlstm import release_graphs
+
+    xl = phase8_xlstm(tmp, report)
+    release_graphs()
+    for old in tmp.iterdir():
+        shutil.rmtree(old) if old.is_dir() else old.unlink()
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    release_host_cache("after phase 8a")
+    gr = phase8_griffin(tmp, report)
+    gc.collect()
+    release_host_cache("after phase 8b")
+    return {k: xl[k] + gr[k] for k in xl}
+
+
 # (name, report key, source, the TPU kernel's body it replaces)
 KERNEL_ROWS = [
     ("fused_precodec", "fused", "src/repro_torch/kernels/fused/csrc/fused_precodec.cu",
@@ -2352,9 +2784,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=PHASE2_LAYERS,
                     help="depth of phase 2's model state (widths are never cut; "
-                         "phases 1 and 3-5 run all 24 layers of qwen1.5-0.5b, phase 6 "
-                         "12, phase 7 one of qwen2-moe-a2.7b's and two of "
-                         "llava-next-mistral-7b's)")
+                         "phases 1 and 3 run all 24 layers of qwen1.5-0.5b, phases 4 and 5 "
+                         "12, phase 6 six, phase 7 one of qwen2-moe-a2.7b's and two of "
+                         "llava-next-mistral-7b's, phase 8 all of xlstm-350m's and "
+                         "three of recurrentgemma-2b's)")
     args = ap.parse_args(argv)
 
     # cuBLAS reads this when it makes its handle; phase 4's bit-exact
@@ -2412,12 +2845,15 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        launches4, step4_digests = phase4(Path(tmp), report)
+        from repro_torch.configs import get_config
+
+        qwen = get_config("qwen1.5-0.5b").replace(n_layers=PHASE4_LAYERS)
+        launches4, step4_digests = phase4(Path(tmp), report, model_cfg=qwen)
         phase_s["4"] = time.perf_counter() - t0
         gc.collect()
         release_host_cache("after phase 4")
         t0 = time.perf_counter()
-        launches5 = phase5(Path(tmp), report, step4_digests)
+        launches5 = phase5(Path(tmp), report, step4_digests, model_cfg=qwen)
         phase_s["5"] = time.perf_counter() - t0
         # room for phase 6: clear everything under tmp (phase 2 removed its
         # roots; phases 4 and 5 leave theirs)
@@ -2438,7 +2874,16 @@ def main(argv=None):
         t0 = time.perf_counter()
         launches7 = phase7(Path(tmp), report)
         phase_s["7"] = time.perf_counter() - t0
-    launches = [launches2, launches3, launches4, launches5, launches6, launches7]
+        # room for phase 8: phase 7's roots go too
+        for old in Path(tmp).iterdir():
+            shutil.rmtree(old) if old.is_dir() else old.unlink()
+        gc.collect()
+        torch.cuda.empty_cache()
+        release_host_cache("after phase 7")
+        t0 = time.perf_counter()
+        launches8 = phase8(Path(tmp), report)
+        phase_s["8"] = time.perf_counter() - t0
+    launches = [launches2, launches3, launches4, launches5, launches6, launches7, launches8]
     report["launches"] = {f"phase{i}": n for i, n in enumerate(launches, start=2)}
 
     kernels = []

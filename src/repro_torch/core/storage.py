@@ -667,10 +667,15 @@ def fair_share_rates(weights, demands, cap: float):
     # Each pass saturates >= 1 tenant or exhausts the cap: <= n passes.
     while remaining > 1e-12 * max(1.0, cap) and active.any():
         share = remaining * w[active] / w[active].sum()
-        grant = np.minimum(share, d[active] - r[active])
+        need = d[active] - r[active]
+        grant = np.minimum(share, need)
         r[active] += grant
         remaining -= float(grant.sum())
-        still = active & (r < d - 1e-9)
+        # a tenant granted its whole need is saturated, also where
+        # r + (d - r) rounded to just under d - 1e-9
+        full = np.zeros_like(active)
+        full[active] = share >= need
+        still = active & (r < d - 1e-9) & ~full
         if still.sum() == active.sum():
             break  # nobody saturated: every share was granted in full
         active = still

@@ -95,9 +95,11 @@ def run(
     device: Any = "cuda",
     seed: int = 0,
     log: Callable[[str], None] = print,
+    save_last: bool = True,
 ) -> TrainRun:
     """Train to ``steps``, checkpointing every ``ckpt_every`` steps and
-    at the last (``ckpt_every=0``: never) through a manager on
+    at the last (``ckpt_every=0``: never; ``save_last=False``: all but the
+    last) through a manager on
     ``ckpt_cfg``. ``resume`` restores the newest step (``True``; a cold
     start when there is none) or the given step before training on.
     The run uses deterministic algorithms (and cuBLAS's fixed workspace
@@ -110,7 +112,7 @@ def run(
     try:
         with deterministic_algorithms():
             return _loop(model_cfg, data_cfg, tcfg, mgr, steps=steps, ckpt_every=ckpt_every,
-                         resume=resume, dev=dev, seed=seed, log=log)
+                         resume=resume, dev=dev, seed=seed, log=log, save_last=save_last)
     finally:
         if mgr is not None:
             mgr.close()
@@ -139,7 +141,8 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _loop(model_cfg, data_cfg, tcfg, mgr, *, steps, ckpt_every, resume, dev, seed, log):
+def _loop(model_cfg, data_cfg, tcfg, mgr, *, steps, ckpt_every, resume, dev, seed, log,
+          save_last):
     model = get_model(model_cfg)
     data = SyntheticTokens(data_cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -192,7 +195,8 @@ def _loop(model_cfg, data_cfg, tcfg, mgr, *, steps, ckpt_every, resume, dev, see
         if staged is not None:
             save(*staged)
             staged = None
-        if mgr is not None and ckpt_every > 0 and ((i + 1) % ckpt_every == 0 or (i + 1) == steps):
+        due = ckpt_every > 0 and (save_last if i + 1 == steps else (i + 1) % ckpt_every == 0)
+        if mgr is not None and due:
             full_state = {"train": state, "data": data.state_tree()}
             if mgr.stage(i + 1, full_state):
                 staged = (i + 1, full_state)

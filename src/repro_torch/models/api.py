@@ -1,17 +1,20 @@
 """Uniform model facade over the architecture families.
 
-Counterpart of ``repro/models/api.py``. The families that route to the
-decoder-only transformer (``dense``, ``moe``, ``vlm``) are ported; the
-recurrent, hybrid and audio families raise (ROADMAP Queue 1 item 7).
-Batch dict keys: ``tokens`` (always), ``patches`` (vlm). ``init`` returns the
-:class:`~repro_torch.models.transformer.Transformer` module, whose
-``state_tree()`` is the parameter tree that ``loss``, ``forward``,
-``prefill`` and ``decode_step`` take, as the reference's ``init``
-returns its tree. A cache is a
-:class:`~repro_torch.models.transformer.DecodeCache`; ``cache_struct``
-gives one on the meta device (shapes and dtypes, no memory) where the
-reference gives ``ShapeDtypeStruct`` leaves, and so does
-``batch_struct``.
+Counterpart of ``repro/models/api.py``. The decoder-only transformer
+(``dense``, ``moe``, ``vlm``), xLSTM (``ssm``) and Griffin (``hybrid``)
+families are ported; the audio family raises (ROADMAP Queue 1 item 7).
+Batch dict keys: ``tokens`` (always), ``patches`` (vlm). ``init`` returns
+the family's module (:class:`~repro_torch.models.transformer.Transformer`,
+:class:`~repro_torch.models.xlstm.XLSTM` or
+:class:`~repro_torch.models.griffin.Griffin`), whose ``state_tree()`` is
+the parameter tree that ``loss``, ``forward``, ``prefill`` and
+``decode_step`` take, as the reference's ``init`` returns its tree.
+``param_struct`` gives that tree on the meta device (shapes and dtypes,
+no memory) where the reference gives ``ShapeDtypeStruct`` leaves, and so
+do ``cache_struct`` and ``batch_struct``. A cache is a
+:class:`~repro_torch.models.transformer.DecodeCache` for the
+transformer families and the recurrent state dict of ``init_state``
+for the others.
 """
 from __future__ import annotations
 
@@ -20,20 +23,35 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
 
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import griffin, transformer, xlstm
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils.treelib import tree_leaves
+
+# each ported family's module and the nn.Module class of its parameters
+_FAMILIES = {
+    "dense": (transformer, transformer.Transformer),
+    "moe": (transformer, transformer.Transformer),
+    "vlm": (transformer, transformer.Transformer),
+    "ssm": (xlstm, xlstm.XLSTM),
+    "hybrid": (griffin, griffin.Griffin),
+}
 
 
-def _family_module(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe", "vlm"):
-        return transformer
-    if cfg.family in ("ssm", "hybrid", "audio"):
+def _family(cfg: ModelConfig):
+    if cfg.family in _FAMILIES:
+        return _FAMILIES[cfg.family]
+    if cfg.family == "audio":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 7)"
         )
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _family_module(cfg: ModelConfig):
+    return _family(cfg)[0]
 
 
 def _extra_kwargs(cfg: ModelConfig, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -51,21 +69,26 @@ class Model:
         return _family_module(self.cfg)
 
     # -- parameters ---------------------------------------------------------
-    def init(self, generator: torch.Generator, device: Any = "cuda") -> transformer.Transformer:
+    def build(self, device: Any, generator: Optional[torch.Generator] = None) -> nn.Module:
+        """The family's parameter module on ``device``: drawn from
+        ``generator``, or uninitialised without one (to be loaded)."""
+        return _family(self.cfg)[1](self.cfg, device=device, generator=generator)
+
+    def init(self, generator: torch.Generator, device: Any = "cuda") -> nn.Module:
         """The model's module with parameters drawn from ``generator``
         on ``device`` (``"cuda"`` raises without a card)."""
-        _family_module(self.cfg)  # raises for a family not ported yet
-        return transformer.Transformer(
-            self.cfg, device=resolve_device(device), generator=generator
-        )
+        return self.build(resolve_device(device), generator)
+
+    def param_struct(self) -> Dict[str, Any]:
+        """The parameter tree on the meta device: names, shapes and
+        dtypes, no memory (a restore target)."""
+        return self.build("meta").state_tree()
 
     def param_count(self, *, active_only: bool = False) -> int:
         """Parameters of the model, counted on the meta device (no
         memory). ``active_only``: less the routed experts a token does
         not use (``n_experts - top_k`` of them in every layer)."""
-        _family_module(self.cfg)
-        module = transformer.Transformer(self.cfg, device="meta")
-        total = sum(math.prod(p.shape) for p in module.parameters())
+        total = sum(math.prod(p.shape) for p in tree_leaves(self.param_struct()))
         if active_only and self.cfg.moe is not None:
             m = self.cfg.moe
             e_ff = m.expert_d_ff or self.cfg.d_ff
@@ -96,14 +119,19 @@ class Model:
     def decode_step(self, params, cache, tokens):
         return self.mod.decode_step(params, self.cfg, cache, tokens)
 
-    def cache_struct(self, b: int, s_max: int) -> transformer.DecodeCache:
-        _family_module(self.cfg)
-        return transformer.init_cache(self.cfg, b, s_max, device="meta")
+    def cache_struct(self, b: int, s_max: int) -> Any:
+        """The cache on the meta device (shapes and dtypes, no memory)."""
+        mod = _family_module(self.cfg)
+        if mod is transformer:
+            return transformer.init_cache(self.cfg, b, s_max, device="meta")
+        return mod.init_state(None, self.cfg, b, device="meta")
 
-    def init_cache(self, params, b: int, s_max: int) -> transformer.DecodeCache:
+    def init_cache(self, params, b: int, s_max: int) -> Any:
         """A zero cache on the device of ``params``' embedding."""
-        _family_module(self.cfg)
-        return transformer.init_cache(self.cfg, b, s_max, device=params["embed"].device)
+        mod = _family_module(self.cfg)
+        if mod is transformer:
+            return transformer.init_cache(self.cfg, b, s_max, device=params["embed"].device)
+        return mod.init_state(params, self.cfg, b)
 
     # -- inputs ---------------------------------------------------------------
     def batch_struct(self, batch_size: int, seq_len: int) -> Dict[str, torch.Tensor]:

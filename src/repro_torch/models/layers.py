@@ -6,6 +6,8 @@ embedding and the SiLU; casts back to the compute dtype where the
 reference casts). The reference's ``_act_ff`` is a sharding pin and a
 no-op without a mesh, so it has no counterpart. ``layer_norm``,
 ``gelu_mlp`` and the sinusoidal tables come with the whisper family.
+``new_param`` and ``cross_entropy`` are the port's own: the families
+share them where the reference repeats the same lines in each.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -93,6 +96,38 @@ def dense_init(
 
 def embed_init(generator: torch.Generator, shape, dtype, *, device=None) -> torch.Tensor:
     return (_normal(generator, shape, device) * 0.02).to(dtype)
+
+
+def new_param(generator: Optional[torch.Generator], shape, dtype, device, init="dense", *,
+              scale: Optional[float] = None, layers: Optional[int] = None) -> nn.Parameter:
+    """A parameter of ``shape`` (stacked ``layers`` deep when given):
+    ``init`` is ``"dense"`` (``dense_init`` with ``scale``), ``"embed"``,
+    a number (every element that value) or a tensor (its values). Without
+    a ``generator`` it is left uninitialised (``torch.empty``), to be
+    loaded."""
+    full = shape if layers is None else (layers, *shape)
+    if generator is None:
+        return nn.Parameter(torch.empty(full, dtype=dtype, device=device))
+    if init == "dense":
+        t = dense_init(generator, shape, dtype, scale=scale, layers=layers, device=device)
+    elif init == "embed":
+        t = embed_init(generator, full, dtype, device=device)
+    elif isinstance(init, torch.Tensor):
+        t = init.to(dtype=dtype, device=device)
+    else:
+        t = torch.full(full, float(init), dtype=dtype, device=device)
+    return nn.Parameter(t)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 of ``logits`` (..., V)
+    against ``targets`` (...). The gold logit comes from ``gather``: a
+    sum of one value and zeros is exact, so it equals the reference's
+    mask-and-reduce without its (..., V) mask."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
 
 
 def causal_mask(s_q: int, s_k: int, *, q_offset: int = 0, device=None) -> torch.Tensor:

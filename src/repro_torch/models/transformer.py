@@ -41,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import KVCache, attention, decode_attention, write_at_
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, embed_init, rms_norm, swiglu
+from repro_torch.models.layers import apply_rope, cross_entropy, new_param, rms_norm, swiglu
 from repro_torch.models.moe import moe_ffn
 from repro_torch.utils.treelib import flatten_with_names, unflatten
 
@@ -99,24 +99,17 @@ class Transformer(nn.Module):
         v, d, n = cfg.vocab_size, cfg.d_model, cfg.n_layers
 
         def make(shape, init, *, layers=None, dtype=cfg.pdt):
-            full = shape if layers is None else (layers, *shape)
-            if generator is None:
-                return nn.Parameter(torch.empty(full, dtype=dtype, device=device))
-            if init == "zeros":
-                return nn.Parameter(torch.zeros(full, dtype=dtype, device=device))
-            if init == "embed":
-                return nn.Parameter(embed_init(generator, full, dtype, device=device))
-            return nn.Parameter(dense_init(generator, shape, dtype, layers=layers, device=device))
+            return new_param(generator, shape, dtype, device, init, layers=layers)
 
         def stacks(shapes):
             return nn.ParameterDict({
-                name: make(shape, "zeros" if name in _ZERO_INIT else "dense", layers=n,
+                name: make(shape, 0.0 if name in _ZERO_INIT else "dense", layers=n,
                            dtype=torch.float32 if name in _FLOAT32_LEAVES else cfg.pdt)
                 for name, shape in shapes.items()
             })
 
         self.embed = make((v, d), "embed")
-        self.final_norm = make((d,), "zeros")
+        self.final_norm = make((d,), 0.0)
         self.out = None if cfg.tie_embeddings else make((v, d), "dense")
         shapes = layer_shapes(cfg)
         moe = shapes.pop("moe", None)
@@ -269,20 +262,11 @@ def lm_loss(
     chunk_q: Optional[int] = -1,
     remat: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy (patch prefix positions excluded).
-
-    The gold logit comes from ``gather``: a sum of one value and zeros
-    is exact, so it equals the reference's mask-and-reduce without its
-    (B, S, V) mask."""
+    """Next-token cross-entropy (patch prefix positions excluded)."""
     logits, aux = forward(params, cfg, tokens, patches=patches, chunk_q=chunk_q, remat=remat)
     n_prefix = 0 if patches is None else patches.shape[1]
     # predict tokens[t+1] from position n_prefix + t
-    pred = logits[:, n_prefix : n_prefix + tokens.shape[1] - 1]
-    tgt = tokens[:, 1:].long()
-    lf = pred.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, tgt[..., None])[..., 0]
-    ce = torch.mean(lse - gold)
+    ce = cross_entropy(logits[:, n_prefix : n_prefix + tokens.shape[1] - 1], tokens[:, 1:])
     return ce + aux, {"ce": ce, "aux": aux}
 
 

@@ -146,8 +146,10 @@ class Server:
             s = prompt.shape[1]
             s_max = self.cfg.s_max or (s + self.cfg.max_new_tokens)
             cache, logits = self.model.prefill(params, {**batch, "tokens": prompt}, s_max=s_max)
-            if cache.k.device != dev:
-                raise RuntimeError(f"cache on {cache.k.device}, params on {dev}")
+            elsewhere = {str(t.device) for t in tree_leaves(cache)
+                         if isinstance(t, torch.Tensor) and t.device != dev}
+            if elsewhere:
+                raise RuntimeError(f"cache on {sorted(elsewhere)}, params on {dev}")
             outs = []
             tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
             for _ in range(self.cfg.max_new_tokens):

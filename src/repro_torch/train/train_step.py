@@ -3,8 +3,8 @@
 Counterpart of ``repro/train/train_step.py``. The train state is the
 reference's tree ``{"params", "opt": {"mu", "nu", "count"}, "step"}``
 with ``count`` and ``step`` 0-d int32 tensors; its ``params`` leaves
-are a :class:`~repro_torch.models.transformer.Transformer`'s own
-parameters. The step updates the state in place and returns it.
+are the model module's own parameters (``Model.init``: a transformer's
+stacks, or the recurrent families' per-layer ``blocks``). The step updates the state in place and returns it.
 
 Microbatches run as a Python loop (``lax.scan`` there), every batch
 leaf (the tokens, and a VLM batch's patches) split on its first axis

@@ -10,13 +10,15 @@ registers), the torch side ``torch.bfloat16``. Structure and leaf order
 are kept (see :mod:`repro_torch.utils.treelib`).
 
 :func:`params_from_numpy` and :func:`train_state_from_numpy` load a JAX
-parameter or train-state tree into the port's model module and
-optimizer state, the MoE family's nested ``layers.moe`` leaves (a
-float32 router beside bfloat16 params, with float32 moments) included;
-:func:`copy_tree_` loads any tree into another in
-place (a restore into a live train state). :func:`cache_from_numpy` and
-:func:`cache_to_numpy` carry a decode cache (``k``, ``v``, ``pos``)
-between the two packages' ``DecodeCache`` types.
+parameter or train-state tree into the port's model module of the
+config's family and its optimizer state, the MoE family's nested
+``layers.moe`` leaves (a float32 router beside bfloat16 params, with
+float32 moments) and the recurrent families' ``blocks`` lists included;
+:func:`copy_tree_` loads any tree into another in place (a restore into
+a live train state). :func:`cache_from_numpy` and :func:`cache_to_numpy`
+carry a decode cache between the packages: the transformer's
+``DecodeCache`` (``k``, ``v``, ``pos``) or a recurrent state (dicts,
+lists of dicts and a ``pos``).
 """
 from __future__ import annotations
 
@@ -89,16 +91,17 @@ def copy_tree_(dst: Any, src: Any) -> Any:
 def params_from_numpy(tree: Any, model_or_cfg: Any, device: Any = "cuda") -> Any:
     """A JAX parameter tree (NumPy leaves) as the port's model module.
 
-    ``model_or_cfg`` is a ``Transformer`` (loaded in place and returned),
-    a ``Model`` or a ``ModelConfig`` (a new module is made on ``device``)."""
+    ``model_or_cfg`` is a module (loaded in place and returned), a
+    ``Model`` or a ``ModelConfig`` (a new module of the config's family
+    is made on ``device``)."""
     from repro_torch.kernels.common import resolve_device
-    from repro_torch.models.transformer import Transformer
+    from repro_torch.models.api import get_model
 
-    if isinstance(model_or_cfg, Transformer):
+    if isinstance(model_or_cfg, torch.nn.Module):
         module = model_or_cfg
     else:
         cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
-        module = Transformer(cfg, device=resolve_device(device))
+        module = get_model(cfg).build(resolve_device(device))
     copy_tree_(module.state_tree(), tree)
     return module
 
@@ -121,18 +124,22 @@ def train_state_from_numpy(tree: Any, model_or_cfg: Any, device: Any = "cuda") -
 
 
 def cache_from_numpy(cache: Any, device: Any = "cuda") -> Any:
-    """A decode cache with NumPy leaves (the JAX package's
-    ``DecodeCache``, or any ``(k, v, pos)``) as the port's
-    :class:`~repro_torch.models.transformer.DecodeCache` on ``device``."""
+    """A decode cache with NumPy leaves as the port's on ``device``: the
+    JAX package's ``DecodeCache`` (or any ``(k, v, pos)`` named tuple) as
+    the port's :class:`~repro_torch.models.transformer.DecodeCache`, a
+    recurrent state (``{"layers": [...], "pos"}``) as the same tree of
+    tensors."""
     from repro_torch.kernels.common import resolve_device
     from repro_torch.models.transformer import DecodeCache
 
     dev = resolve_device(device)
-    return DecodeCache(*(_from_numpy(x, dev) for x in cache))
+    if hasattr(type(cache), "_fields"):
+        return DecodeCache(*(_from_numpy(x, dev) for x in cache))
+    return tree_from_numpy(cache, dev)
 
 
 def cache_to_numpy(cache: Any) -> Any:
-    """The port's ``DecodeCache`` with host NumPy leaves (same type, so
-    ``repro.models.transformer.DecodeCache(*cache_to_numpy(c))`` feeds
-    the JAX package)."""
+    """The port's cache with host NumPy leaves, in the same structure (so
+    ``repro.models.transformer.DecodeCache(*cache_to_numpy(c))`` feeds the
+    JAX package, and a recurrent state's dicts go as they are)."""
     return tree_to_numpy(cache)

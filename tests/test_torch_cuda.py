@@ -397,3 +397,111 @@ def test_snapshot_resume_on_the_card(cuda, tmp_path):
             logits, cache = model.decode_step(resumed.params, cache, tok)
             tok = logits.argmax(-1)[:, None].to(torch.int32)
     np.testing.assert_array_equal(np.stack(out, 1), want[:, 5:])
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-2b"])
+def test_recurrent_forward_backward_on_the_card_is_bit_equal(cuda, arch):
+    """The xLSTM's (the mLSTM chunks, the sLSTM time loop) and Griffin's
+    (the RG-LRU's doubling scan, windowed attention) smoke models in bf16
+    compute: loss and gradients twice under deterministic algorithms, with
+    remat, give the same bits, and no op on the path raises under the
+    mode."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.models import get_model
+
+    cfg = get_smoke_config(arch).replace(compute_dtype="bfloat16")
+    model = get_model(cfg)
+    module = model.init(torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, dtype=torch.int32)
+    leaves = [p for _, p in flatten_with_names(module.state_tree())[0]]
+    out = []
+    with deterministic_algorithms():
+        for _ in range(2):
+            loss, _ = model.loss(module.state_tree(), {"tokens": tokens.cuda()})
+            out.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    assert bool(torch.isfinite(out[0][0]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+def test_slstm_graph_replays_the_eager_loop(cuda):
+    """The sLSTM's time loops on the card replay as CUDA graphs: the
+    forward (with and without the saved gates) and the written-out
+    backward give the bits of the same loops run eagerly."""
+    from repro_torch.models import xlstm
+
+    xlstm.release_graphs()      # those an earlier test's training left
+    g = torch.Generator(device="cuda").manual_seed(2)
+    s, h, b, hd = 48, 4, 3, 32
+    pre_x = torch.randn((s, h, b, 4 * hd), generator=g, device="cuda")
+    r = 0.4 * torch.randn((h, hd, 4 * hd), generator=g, device="cuda") / hd ** 0.5
+    carry = (torch.zeros((h, b, hd), device="cuda"), torch.zeros((h, b, hd), device="cuda"),
+             torch.full((h, b, hd), 1e-6, device="cuda"), torch.full((h, b, hd), -1e30, device="cuda"))
+    for keep in (False, True):
+        eager = xlstm._scan_forward(pre_x, r, *carry, keep=keep)
+        for _ in range(2):      # the capture, then a replay
+            graphed = xlstm._run(xlstm._scan_forward, (pre_x, r, *carry), keep=keep)
+            assert all(torch.equal(x, y) for x, y in zip(graphed, eager))
+        # another option replaced the loop's graph: one is held per loop
+        assert list(xlstm._GRAPHS) == ["_scan_forward"]
+    saved = (r, *carry[:3], eager[0], *eager[5:])
+    grads = (torch.randn_like(eager[0]), *(torch.randn_like(carry[0]) for _ in range(4)))
+    eager_b = xlstm._scan_backward(*saved, *grads)
+    for _ in range(2):
+        graphed_b = xlstm._run(xlstm._scan_backward, saved + grads)
+        assert all(torch.equal(x, y) for x, y in zip(graphed_b, eager_b))
+    assert sorted(xlstm._GRAPHS) == ["_scan_backward", "_scan_forward"]
+    xlstm.release_graphs()
+
+
+def test_xlstm_serving_and_training_hold_bounded_device_memory(cuda):
+    """Prefill captures no graph, and once each prompt length has run
+    (the libraries' one-off workspaces), prefill at those lengths leaves
+    ``torch.cuda.memory_allocated`` where it was; train steps at several
+    sequence lengths hold one graph per sLSTM loop, each replaced when
+    the length changes, and after a first pass over the lengths the
+    memory after a step at a length equals that after the last one
+    there."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model, xlstm
+
+    cfg = get_smoke_config("xlstm-350m").replace(compute_dtype="bfloat16")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cuda").state_tree()
+    g = torch.Generator().manual_seed(1)
+    xlstm.release_graphs()
+
+    def prefill(s):
+        tokens = torch.randint(0, cfg.vocab_size, (3, s), generator=g, dtype=torch.int32)
+        with torch.inference_mode():
+            state, logits = model.prefill(params, {"tokens": tokens.cuda()})
+        del state, logits
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    lengths = (8, 16, 24, 40, 7)
+    for s in lengths:
+        prefill(s)
+    assert xlstm._GRAPHS == {}
+    before = prefill(lengths[-1])
+    for s in lengths * 2:
+        assert prefill(s) == before, s
+    assert xlstm._GRAPHS == {}
+
+    def train(s):
+        tokens = torch.randint(0, cfg.vocab_size, (2, s), generator=g, dtype=torch.int32)
+        loss, _ = model.loss(params, {"tokens": tokens.cuda()})
+        loss.backward()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    for s in (32, 16, 48):  # each shape once: the libraries' one-off workspaces
+        train(s)
+    first = train(32)
+    for s in (16, 48, 32):
+        held = train(s)
+        assert sorted(xlstm._GRAPHS) == ["_scan_backward", "_scan_forward"]
+    assert held == first
+    xlstm.release_graphs()

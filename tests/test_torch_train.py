@@ -359,6 +359,28 @@ def test_run_resumes_bit_exact(tmp_path):
     assert "[resume] restored step 2 (train step 2)" in logs
 
 
+def test_run_without_the_last_save(tmp_path):
+    """``save_last=False``: steps 1-3 with a save every step save steps 1
+    and 2 (each staged beside the next), not 3, and a resumed run replays
+    step 3 from step 2."""
+    cfg = get_smoke_config("qwen1.5-0.5b")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=3))
+    ckpt = T.CheckpointConfig(root=str(tmp_path), cluster=T.theta_like(2, 2),
+                              codec="zstd+delta", chunk_size=8192,
+                              device_precodec=True, device="cpu")
+    a = run(cfg, data_cfg, tcfg, ckpt, steps=3, ckpt_every=1, device="cpu", log=lambda _: None,
+            save_last=False)
+    assert [s.step for s in a.saves] == [1, 2] and not a.flush_errors
+    mgr = T.CheckpointManager(ckpt)
+    assert mgr.steps("pfs") == [1, 2]
+    mgr.close()
+    b = run(cfg, data_cfg, tcfg, ckpt, steps=3, ckpt_every=0, resume=True, device="cpu",
+            log=lambda _: None)
+    assert b.restored_step == 2 and b.losses == a.losses[2:]
+    assert_states_equal(b.state, a.state)
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
