@@ -162,7 +162,31 @@ of params, ring caches and RG-LRU state after 8 tokens) and decode
 against teacher forcing on the card (``SERVE_REF_TOL``). ``--layers``
 never cuts phase 8.
 
-After phases 2 and 4-6, and within phases 7 and 8, the pinned host blocks that
+Phase 9 runs whisper-small, the encoder-decoder, at its published widths
+and full depth (``src/repro/configs/whisper_small.py``: 12 encoder and 12
+decoder layers, d_model 768, 12 heads, d_ff 3072, vocab 51865 tied,
+enc_seq 1500, float32 params, bf16 compute; 239,435,520 parameters, a
+2,873,226,240-byte train state), with everything under the run's
+temporary directory removed first: one float32 step at 2 + 2 layers
+(batch 1 x (1,500 frames, 64 tokens)) against the port's CPU
+(``REF_STEP_TOL``), and prefill of 2 x (1,500 frames, 64 tokens) and 16
+decode steps at 2 + 2 layers against the CPU teacher-forced on the
+card's tokens (``SERVE_REF_TOL``); run A trains steps 1-3 at batch 16 x
+(1,500 frames + 448 decoder tokens) saving step 2 (an anchor, staged
+beside step 3) with the device pre-codec; run B restores step 2 from
+the PFS with L1 dropped and replays step 3, equal byte for byte, digest
+for digest, cursor for cursor; ``Server.generate`` of 8 x (1,500 frames,
+32 tokens) + 64 tokens from run B's params, and a serving snapshot
+(params, the ``WhisperCache`` with the cross K/V of the encoder's
+memory, the next token) after 32 tokens, restored from the PFS into a
+fresh server (the cache digest for digest: the frames are not encoded
+again) that emits the other 32 identically. It prints the losses, the
+replayed step's decoder tokens/s and frames/s, peak device memory, the
+save's and restore's times, prefill and decode times, the snapshot's
+times, and ``roofline.model_flops`` (6·N·D over the decoder's tokens
+only) over the step and ``PEAK_FLOPS``. ``--layers`` never cuts phase 9.
+
+After phases 2 and 4-6, within phases 7 and 8, and after phase 9, the pinned host blocks that
 PyTorch's caching host allocator keeps (the pre-codec's D2H buffers) go
 back to the system (``release_host_cache``): kept, they filled the
 host's 96 GiB in phase 7.
@@ -191,7 +215,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+# the card's memory rate is repro_torch.launch.roofline.HBM_BW (read in
+# bound_ms, after the checkout's src is on the path)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SEED = 20211203
 
@@ -277,7 +302,9 @@ def same_floats(a, b):
 
 
 def bound_ms(n_bytes, n_ops):
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    from repro_torch.launch.roofline import HBM_BW
+
+    t_b = n_bytes / HBM_BW * 1e3
     t_o = n_ops / FP32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
@@ -359,6 +386,30 @@ def make_state(n_layers, device, pool, seed=SEED):
         flat[lo:hi].copy_(torch.from_numpy(a))
     sync()
     return state
+
+
+def data_config(cfg, seq_len, global_batch, seed=SEED):
+    """The trainer's pipeline for ``cfg``: ``global_batch`` x ``seq_len``
+    tokens, and a VLM's patches or an audio model's frames (as
+    ``repro_torch.launch.train.main`` builds it)."""
+    from repro_torch.data import DataConfig
+
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch,
+                      seed=seed, n_patches=cfg.n_patches,
+                      enc_seq=cfg.enc_seq if cfg.family == "audio" else 0,
+                      d_model=cfg.d_model, family=cfg.family)
+
+
+def cut_depth(cfg, n_layers):
+    """``cfg`` cut to ``n_layers`` (an encoder-decoder's encoder too:
+    n_layers + n_layers)."""
+    return cfg.replace(n_layers=n_layers, **({"n_enc_layers": n_layers} if cfg.encdec else {}))
+
+
+def depth(cfg):
+    """``cfg``'s layers as a log line names them: ``"2 + 2"`` for an
+    encoder-decoder."""
+    return f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.encdec else str(cfg.n_layers)
 
 
 def leaves(tree):
@@ -1164,7 +1215,8 @@ def moved_slots_tol(r):
 def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batch=2,
                           tag="phase4"):
     """One train step of ``cfg`` at its full widths and ``seq_len`` (text
-    tokens; a VLM batch's patches come first), depth cut to ``n_layers``,
+    tokens; a VLM batch's patches come first, an audio batch's frames go
+    to the encoder), depth cut to ``n_layers`` (an encoder's too),
     from the same state (from a seed) on the same batch, on the card and
     on the CPU through the port's own step: loss and grad_norm, and per
     leaf mu and the update's norm, within ``REF_STEP_TOL`` (relative); lr
@@ -1175,13 +1227,13 @@ def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batc
     stays on the card; leaves are compared there one at a time."""
     import torch
 
-    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.data import SyntheticTokens
     from repro_torch.models import get_model
     from repro_torch.train import build_train_step
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.utils.convert import copy_tree_
 
-    cfg = cfg.replace(n_layers=n_layers)
+    cfg = cut_depth(cfg, n_layers)
     model = get_model(cfg)
 
     def state(params, dev):
@@ -1194,9 +1246,7 @@ def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batc
     card_state = state(params, DEVICE)
     cpu_state = state(copy_tree_(model.build("cpu").state_tree(), params), "cpu")
     start = [p.detach().clone() for _, p in leaves(params)]
-    batch = SyntheticTokens(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch, seed=SEED,
-        n_patches=cfg.n_patches, d_model=cfg.d_model, family=cfg.family), device="cpu").next()
+    batch = SyntheticTokens(data_config(cfg, seq_len, global_batch), device="cpu").next()
     step = build_train_step(model, tcfg)
     out = {}
     for dev, state in ((DEVICE, card_state), ("cpu", cpu_state)):
@@ -1242,7 +1292,7 @@ def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batc
                cpu_metrics=cm, step_s=g_s, cpu_step_s=c_s, err=err, tol=tol,
                mu_rel=mu, update_norm_rel=upd, routing=routing)
     report[f"{tag}_reference_step".replace(" ", "_")] = row
-    log(f"{tag} reference step ({cfg.name} widths, {n_layers} layers, batch "
+    log(f"{tag} reference step ({cfg.name} widths, {depth(cfg)} layers, batch "
         f"{global_batch}x{seq_len}): card {gm} in {g_s:.3f} s, cpu {cm} in {c_s:.3f} s")
     if routing is not None:
         log(f"{tag} reference step routing, card against cpu: {routing['flipped']} of "
@@ -1287,12 +1337,10 @@ def train_and_replay(cfg, root, report, tag, *, seq_len, global_batch, steps, ck
     import torch
 
     from repro_torch.core import CheckpointConfig, theta_like
-    from repro_torch.data import DataConfig
     from repro_torch.launch.train import run
     from repro_torch.train import OptConfig, TrainConfig
 
-    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                          global_batch=global_batch, seed=SEED)
+    data_cfg = data_config(cfg, seq_len, global_batch)
     tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=steps), remat=True)
     ckpt = CheckpointConfig(
         root=str(root), cluster=theta_like(4, 4), strategy="stripe_aligned",
@@ -1492,8 +1540,10 @@ SERVE_ROUTED_OTHERWISE_MAX = 0.25
 def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16, params=None,
                      tag="phase5", tol=SERVE_REF_TOL):
     """Prefill of ``batch`` x ``prompt`` tokens (a VLM's patch embeddings,
-    from a seed, first) then ``steps`` greedy decode steps of ``cfg`` at
-    its full widths, depth cut to ``n_layers``, from one set of weights
+    from a seed, first; an audio model's frames, from the seed, to its
+    encoder) then ``steps`` greedy decode steps of ``cfg`` at its full
+    widths, depth cut to ``n_layers`` (an encoder's too), from one set of
+    weights
     (``params``, a tree of tensors on any device, or else drawn from a
     seed), on the card and through the port's CPU, the CPU teacher-forced
     on the card's tokens: every step's logits and the cache's float leaves
@@ -1508,7 +1558,7 @@ def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16,
     from repro_torch.models import get_model
     from repro_torch.utils.treelib import tree_map
 
-    cfg = cfg.replace(n_layers=n_layers)
+    cfg = cut_depth(cfg, n_layers)
     model = get_model(cfg)
     if params is None:
         params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE).state_tree()
@@ -1518,6 +1568,9 @@ def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16,
     if cfg.family == "vlm":
         inputs["patches"] = torch.as_tensor(
             r.standard_normal((batch, cfg.n_patches, cfg.d_model), dtype=np.float32))
+    if cfg.family == "audio":
+        inputs["frames"] = torch.as_tensor(
+            r.standard_normal((batch, cfg.enc_seq, cfg.d_model), dtype=np.float32))
     s_max = cfg.n_patches * (cfg.family == "vlm") + prompt + steps
     forced = None
     out = {}
@@ -1562,7 +1615,7 @@ def phase5_reference(cfg, report, *, n_layers=2, batch=2, prompt=2048, steps=16,
                cpu_s=c_s, logits_err=logit_err, cache_err=cache_err, tol=tol,
                held_steps=held, routing=routing)
     report[f"{tag}_reference".replace(" ", "_")] = row
-    log(f"{tag} reference ({cfg.name} widths, {n_layers} layers, batch {batch}x{prompt}, "
+    log(f"{tag} reference ({cfg.name} widths, {depth(cfg)} layers, batch {batch}x{prompt}, "
         f"{steps} decode steps teacher-forced): card {g_s:.3f} s, cpu {c_s:.3f} s; "
         f"worst logits err {worst:.3e} of max|logit| over {len(held)} held steps "
         f"(tol {tol['logits']:g}), worst cache err {max(cache_err):.3e} relative "
@@ -1615,29 +1668,33 @@ def cuda_ms(fn, reps=5):
     return time_ms(fn, reps=reps, warmup=1)
 
 
-def serve_snapshot(srv, root, report, tag, *, tokens, want, s_max):
+def serve_snapshot(srv, root, report, tag, *, inputs, want, s_max):
     """A serving snapshot and its resume on ``srv`` (a ``Server``):
-    prefill of ``tokens`` (on the card) and half of ``want``'s greedy
-    tokens decoded step by step, each timed and each token equal to
-    ``want``'s (``Server.generate``'s); then the snapshot (params, the
-    cache or recurrent state, the next token) saved with the device
-    pre-codec under ``root`` and restored from the PFS (L1 dropped, another
-    geometry) from the model's meta templates into a fresh server, which
-    must emit the other half of ``want`` identically. Returns the
-    snapshot's row (with ``prefill_ms`` and ``decode_ms_per_token``) and
-    the kernel launches of the save and the restore."""
+    prefill of the batch ``inputs`` (on the card: ``tokens``, and an audio
+    model's ``frames``) and half of ``want``'s greedy tokens decoded step
+    by step, each timed
+    and each token equal to ``want``'s (``Server.generate``'s); then the
+    snapshot (params, the cache or recurrent state, the next token) saved
+    with the device pre-codec under ``root`` and restored from the PFS (L1
+    dropped, another geometry) from the model's meta templates into a
+    fresh server. The restored cache must equal the saved one digest for
+    digest (whisper's cross K/V included: nothing encodes the frames
+    again), and the fresh server must emit the other half of ``want``
+    identically. Returns the snapshot's row (with ``prefill_ms`` and
+    ``decode_ms_per_token``) and the kernel launches of the save and the
+    restore."""
     import numpy as np
     import torch
 
     from repro_torch.core import theta_like
     from repro_torch.serve import Server
 
-    model, batch, new = srv.model, tokens.shape[0], want.shape[1]
+    model, batch, new = srv.model, inputs["tokens"].shape[0], want.shape[1]
     half = new // 2
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        cache, lg = model.prefill(srv.params, {"tokens": tokens}, s_max=s_max)
+        cache, lg = model.prefill(srv.params, inputs, s_max=s_max)
         sync()
         prefill_s = time.perf_counter() - t0
         tok, first = lg.argmax(-1)[:, None].to(torch.int32), []
@@ -1651,8 +1708,9 @@ def serve_snapshot(srv, root, report, tag, *, tokens, want, s_max):
     if not np.array_equal(torch.stack(first, 1).cpu().numpy(), want[:, :half]):
         raise AssertionError(f"{tag}: the decode loop differs from Server.generate")
     cache_type = type(cache)
-    smgr = manager(root, theta_like(4, 4))
     before = read_counts()
+    cache_digests = device_digests(cache)
+    smgr = manager(root, theta_like(4, 4))
     st = smgr.save(1, srv.snapshot_state(cache) | {"tok": tok})
     smgr.wait()
     if smgr.flush_errors or read_counts()["fused_precodec"] == before["fused_precodec"]:
@@ -1672,6 +1730,8 @@ def serve_snapshot(srv, root, report, tag, *, tokens, want, s_max):
             {x.device.type for _, x in leaves(got)} != {torch.device(DEVICE).type}:
         raise AssertionError(f"{tag}: the restored snapshot is not a {cache_type.__name__} "
                              f"on the card")
+    if not np.array_equal(device_digests(got["cache"]), cache_digests):
+        raise AssertionError(f"{tag}: the restored cache differs from the saved one")
     fresh = Server(model, got["params"], srv.cfg)
     cache, tok, rest = got["cache"], got["tok"], []
     with torch.inference_mode():
@@ -1864,7 +1924,8 @@ def phase5(tmp, report, step4_digests, *, model_cfg=None, batch=8, prompt=2048, 
 
     # -- snapshot resume: 32 tokens, snapshot, restore, 32 more ----------
     row["snapshot"], _ = serve_snapshot(srv, tmp / "serve_snapshot", report, "phase5",
-                                        tokens=dev_prompt, want=v1[0], s_max=prompt + new)
+                                        inputs={"tokens": dev_prompt}, want=v1[0],
+                                        s_max=prompt + new)
     fleet.close()
     mgr.close()
 
@@ -2325,15 +2386,12 @@ def phase7_vlm(tmp, report, *, model_cfg=None, seq_len=1472, global_batch=4, ref
 
     from repro_torch.configs import get_config
     from repro_torch.core import CheckpointConfig, theta_like
-    from repro_torch.data import DataConfig
     from repro_torch.launch.train import run
     from repro_torch.train import OptConfig, TrainConfig
 
     t_phase = time.perf_counter()
     cfg = model_cfg or get_config("llava-next-mistral-7b").replace(n_layers=VLM_LAYERS)
-    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                          global_batch=global_batch, seed=SEED, n_patches=cfg.n_patches,
-                          d_model=cfg.d_model, family=cfg.family)
+    data_cfg = data_config(cfg, seq_len, global_batch)
     tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=1), remat=True)
     root = tmp / "vlm"
     ckpt = CheckpointConfig(
@@ -2442,12 +2500,13 @@ XLSTM_GROWTH = (64, 128, 256)     # lengths of gradient_growth's report
 GRIFFIN_LAYERS = 3
 
 
-def phase8_train(cfg, tmp, report, tag, *, seq_len, global_batch, steps):
+def train_replay_row(cfg, tmp, report, tag, *, seq_len, global_batch, steps):
     """:func:`train_and_replay` of ``cfg`` with one
     save, an anchor of step ``steps - 1`` staged beside the last step, as
-    phase 8's row; returns it and run B. The last step is not saved: a
-    save of griffin's 10.9 GB state cost 22.6-39.1 s of window and 13.4 s
-    of flush (H100 80GB HBM3, 700.00 W; PERF.md), and run B replays it."""
+    a row of phases 8 and 9; returns it and run B. The last step is not
+    saved: a save of griffin's 10.9 GB state cost 22.6-39.1 s of window
+    and 13.4 s of flush (H100 80GB HBM3, 700.00 W; PERF.md), and run B
+    replays it."""
     tr = train_and_replay(cfg, tmp / tag.split()[-1], report, tag, seq_len=seq_len,
                           global_batch=global_batch, steps=steps, ckpt_every=steps - 1,
                           save_last=False, ckpt_kw=dict(delta_every=1))
@@ -2505,11 +2564,12 @@ def teacher_forcing(cfg, params, report, tag, *, batch, prompt, steps, tol=SERVE
     return err
 
 
-def phase8_serve(cfg, params, tmp, report, tag, *, batch, prompt, new):
-    """``Server.generate`` of ``batch`` x ``prompt`` tokens (from a seed)
-    and ``new`` greedy tokens, then :func:`serve_snapshot` after half of
-    them (its prefill and decode steps timed). Returns the phase's row and
-    the snapshot's kernel launches."""
+def generate_and_snapshot(cfg, params, tmp, report, tag, *, batch, prompt, new):
+    """``Server.generate`` of ``batch`` x ``prompt`` tokens (from a seed;
+    an audio model's frames from the same seed) and ``new`` greedy
+    tokens, then :func:`serve_snapshot` after half of them (its prefill
+    and decode steps timed). Returns the phase's row and the snapshot's
+    kernel launches."""
     import numpy as np
     import torch
 
@@ -2517,16 +2577,20 @@ def phase8_serve(cfg, params, tmp, report, tag, *, batch, prompt, new):
     from repro_torch.serve import ServeConfig, Server
 
     model = get_model(cfg)
-    prompt_np = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    r = np.random.default_rng(SEED)
+    inputs = {"tokens": r.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)}
+    if cfg.family == "audio":
+        inputs["frames"] = r.standard_normal((batch, cfg.enc_seq, cfg.d_model),
+                                             dtype=np.float32)
     srv = Server(model, params, ServeConfig(max_new_tokens=new))
     sync()
     t0 = time.perf_counter()
-    want, _ = srv.generate({"tokens": prompt_np})
+    want, _ = srv.generate(inputs)
     generate_s = time.perf_counter() - t0
-    snap, launches = serve_snapshot(srv, tmp / f"{tag.split()[-1]}_snapshot", report, tag,
-                                    tokens=torch.as_tensor(prompt_np, device=DEVICE),
-                                    want=want, s_max=prompt + new)
+    snap, launches = serve_snapshot(
+        srv, tmp / f"{tag.split()[-1]}_snapshot", report, tag,
+        inputs={k: torch.as_tensor(v, device=DEVICE) for k, v in inputs.items()},
+        want=want, s_max=prompt + new)
     decode_ms = snap.pop("decode_ms_per_token")
     row = dict(batch=batch, prompt=prompt, new=new, generate_s=generate_s,
                prefill_ms=snap.pop("prefill_ms"), decode_ms_per_token=decode_ms,
@@ -2544,7 +2608,7 @@ def timed_step(cfg, global_batch, seq_len, *, profile_tag=None):
     algorithms, as the trainer runs."""
     import torch
 
-    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.data import SyntheticTokens
     from repro_torch.launch.train import deterministic_algorithms
     from repro_torch.models import get_model
     from repro_torch.train import OptConfig, TrainConfig, build_train_step, init_train_state
@@ -2553,8 +2617,7 @@ def timed_step(cfg, global_batch, seq_len, *, profile_tag=None):
     tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=3), remat=True)
     state = init_train_state(model, torch.Generator(device=DEVICE).manual_seed(SEED), tcfg,
                              DEVICE)
-    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                                      global_batch=global_batch, seed=SEED), device=DEVICE)
+    data = SyntheticTokens(data_config(cfg, seq_len, global_batch), device=DEVICE)
     step = build_train_step(model, tcfg)
     with deterministic_algorithms():
         step(state, data.next())
@@ -2606,7 +2669,7 @@ def phase8_xlstm(tmp, report, *, model_cfg=None, train_kw=None, ref_kw=None,
     against the CPU of one period (the sLSTM in it, ``XLSTM_PERIOD_REF``)
     and of its three mLSTM layers at 1 x 2048 (the carried state crosses
     a chunk boundary); the trainer's run A and run B
-    (:func:`phase8_train`, steps 1-3 at ``XLSTM_TRAIN``, every loss
+    (:func:`train_replay_row`, steps 1-3 at ``XLSTM_TRAIN``, every loss
     finite) and the gradient norm by length; serving from run B's params
     (generate 8 x 2048 + 16, a snapshot after 8 tokens); the sLSTM's
     share of a step (a step of one period against one of its three
@@ -2641,7 +2704,7 @@ def phase8_xlstm(tmp, report, *, model_cfg=None, train_kw=None, ref_kw=None,
         dict(XLSTM_PERIOD_REF, n_layers=period), **(period_ref_kw or {})))
     ref = phase4_reference_step(f32, tcfg, report=report, tag=tag, **dict(
         dict(seq_len=2048, n_layers=n_ref, global_batch=1), **(ref_kw or {})))
-    row, b = phase8_train(cfg, tmp, report, tag, steps=3, **train_kw)
+    row, b = train_replay_row(cfg, tmp, report, tag, steps=3, **train_kw)
     params = b.state["params"]
     del b
     gc.collect()
@@ -2652,7 +2715,7 @@ def phase8_xlstm(tmp, report, *, model_cfg=None, train_kw=None, ref_kw=None,
     release_host_cache(f"after {tag}'s training")
     # serving comes before the timed and profiled steps: after them the
     # first generate, its prefill eager, took 25.1 s on an H100 (PERF.md)
-    serve, served = phase8_serve(cfg, params, tmp, report, tag, **dict(
+    serve, served = generate_and_snapshot(cfg, params, tmp, report, tag, **dict(
         dict(batch=8, prompt=2048, new=16), **(serve_kw or {})))
     del params
     gc.collect()
@@ -2697,7 +2760,7 @@ def phase8_griffin(tmp, report, *, model_cfg=None, seq_len=4096, global_batch=1,
                    serve_kw=None):
     """recurrentgemma-2b at its published widths, cut to one period of 3
     layers: one step against the CPU (1 x 512 tokens); the trainer's run
-    A and run B (:func:`phase8_train`, steps 1-2 at batch 1 x 4096, past
+    A and run B (:func:`train_replay_row`, steps 1-2 at batch 1 x 4096, past
     the 2,048-token window); serving from run B's params (generate 4 x
     4096 + 16, so the ring buffers wrap; a snapshot of params, ring
     caches and RG-LRU state after 8 tokens) and decode against teacher
@@ -2717,8 +2780,8 @@ def phase8_griffin(tmp, report, *, model_cfg=None, seq_len=4096, global_batch=1,
     tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=2), remat=True)
     ref = phase4_reference_step(cfg, tcfg, report=report, tag=tag, **dict(
         dict(seq_len=512, n_layers=cfg.n_layers, global_batch=1), **(ref_kw or {})))
-    row, b = phase8_train(cfg, tmp, report, tag, seq_len=seq_len, global_batch=global_batch,
-                          steps=2)
+    row, b = train_replay_row(cfg, tmp, report, tag, seq_len=seq_len,
+                              global_batch=global_batch, steps=2)
     params = b.state["params"]
     del b
     gc.collect()
@@ -2726,7 +2789,7 @@ def phase8_griffin(tmp, report, *, model_cfg=None, seq_len=4096, global_batch=1,
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     skw = dict(dict(batch=4, prompt=seq_len, new=16), **(serve_kw or {}))
-    serve, served = phase8_serve(cfg, params, tmp, report, tag, **skw)
+    serve, served = generate_and_snapshot(cfg, params, tmp, report, tag, **skw)
     tf = teacher_forcing(cfg, params, report, tag, batch=skw["batch"], prompt=skw["prompt"],
                          steps=skw["new"])
     serve_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
@@ -2765,6 +2828,94 @@ def phase8(tmp, report):
     return {k: xl[k] + gr[k] for k in xl}
 
 
+# -- phase 9 --------------------------------------------------------------
+
+# whisper-small (src/repro/configs/whisper_small.py) at full width and full
+# depth: 239,435,520 parameters, a 2,873,226,240-byte float32 train state.
+# The trainer's batch: 16 rows of 1,500 frames (30 s of audio at 50 Hz)
+# and 448 decoder tokens (whisper's text context); serving: 8 rows of a
+# 32-token prompt and 64 new tokens.
+WHISPER_TRAIN = dict(global_batch=16, seq_len=448)
+WHISPER_SERVE = dict(batch=8, prompt=32, new=64)
+
+
+def phase9(tmp, report, *, model_cfg=None, train_kw=None, ref_kw=None, serve_ref_kw=None,
+           serve_kw=None):
+    """whisper-small at its published widths and full depth: one float32
+    step at 2 + 2 layers (batch 1 x (1,500 frames, 64 tokens)) and bf16
+    prefill and 16 decode steps at 2 + 2 layers, each against the port's
+    CPU; the trainer's run A and run B (:func:`train_replay_row`, steps
+    1-3 at ``WHISPER_TRAIN``, step 2 an anchor staged beside step 3, run
+    B replaying step 3 byte for byte); serving from run B's params
+    (generate ``WHISPER_SERVE`` and a snapshot of params, the
+    ``WhisperCache`` with its cross K/V and the next token after half of
+    the new tokens, restored from the PFS into a fresh server). Returns
+    the kernel launches of the main path (the runs and the snapshot)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.models import get_model
+    from repro_torch.train import OptConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or get_config("whisper-small")
+    tag = "phase9 whisper"
+    train_kw = dict(WHISPER_TRAIN, **(train_kw or {}))
+    b_, s_ = train_kw["global_batch"], train_kw["seq_len"]
+    card = report.get("card")
+    log(f"{tag} model: {cfg.name} layers={cfg.n_enc_layers}+{cfg.n_layers} "
+        f"d_model={cfg.d_model} heads={cfg.n_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"(tied) enc_seq={cfg.enc_seq} params={cfg.param_dtype} compute={cfg.compute_dtype} "
+        f"batch={b_}x({cfg.enc_seq} frames+{s_} tokens) remat=True")
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=3), remat=True)
+    ref = phase4_reference_step(cfg.replace(compute_dtype="float32"), tcfg, report=report,
+                                tag=tag, **dict(dict(seq_len=64, n_layers=2, global_batch=1),
+                                                **(ref_kw or {})))
+    serve_ref = phase5_reference(cfg, report, tag=tag, **dict(
+        dict(n_layers=2, batch=2, prompt=64, steps=16), **(serve_ref_kw or {})))
+    row, b = train_replay_row(cfg, tmp, report, tag, steps=3, **train_kw)
+    params = b.state["params"]
+    del b
+    gc.collect()
+    release_host_cache(f"after {tag}'s training")
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    serve, served = generate_and_snapshot(cfg, params, tmp, report, tag,
+                                          **dict(WHISPER_SERVE, **(serve_kw or {})))
+    serve_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    del params
+    gc.collect()
+
+    step_s = row["replay_step_ms"] / 1e3
+    n_params = get_model(cfg).param_count()
+    flops = model_flops("train", n_params, b_, s_)
+    launches = {k: row["launches"][k] + served[k] for k in served}
+    row.update(
+        enc_layers=cfg.n_enc_layers, enc_seq=cfg.enc_seq, param_count=n_params,
+        replay_frames_per_s=b_ * cfg.enc_seq / step_s,
+        model_flops_decoder_tokens=flops, model_flops_share_of_peak=flops / step_s / PEAK_FLOPS,
+        serve=serve, serve_peak_device_bytes=serve_peak, reference_step_err=ref["err"],
+        serve_reference_err=max(serve_ref["logits_err"]), launches=launches)
+    row["wall_s"] = time.perf_counter() - t_phase
+    report["phase9_whisper"] = row
+    st = row["saves"][0]
+    log(f"{tag} losses {row['losses']}; replayed step 3 {row['replay_step_ms']:.3f} ms: "
+        f"{row['replay_tokens_per_s']:.1f} decoder tokens/s, "
+        f"{row['replay_frames_per_s']:.1f} frames/s; peak_device_bytes="
+        f"{row['peak_device_bytes']} [{card}]")
+    log(f"{tag} save step 2: stage_s={st['stage_s']:.4f} window_s="
+        f"{st['blocking_window_s']:.4f} flush_s={st['flush_s']}; restore_s={row['restore_s']:.3f} "
+        f"({row['restore_bytes_read']} bytes from the PFS, L1 dropped) [{card}]")
+    log(f"{tag} model_flops('train', {n_params}, {b_}, {s_}) = {flops:.4e}: 6*N*D over the "
+        f"decoder's tokens only (not the encoder's {cfg.enc_seq} frames a row), over the "
+        f"replayed step and PEAK_FLOPS = {row['model_flops_share_of_peak']:.4f} [{card}]")
+    log(f"{tag} serving peak_device_bytes={serve_peak}; wall {row['wall_s']:.1f} s [{card}]; "
+        f"launches: fused_precodec={launches['fused_precodec']} "
+        f"checksum={launches['checksum']} ({launches})")
+    return launches
+
+
 # (name, report key, source, the TPU kernel's body it replaces)
 KERNEL_ROWS = [
     ("fused_precodec", "fused", "src/repro_torch/kernels/fused/csrc/fused_precodec.cu",
@@ -2783,11 +2934,13 @@ KERNEL_ROWS = [
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=PHASE2_LAYERS,
-                    help="depth of phase 2's model state (widths are never cut; "
-                         "phases 1 and 3 run all 24 layers of qwen1.5-0.5b, phases 4 and 5 "
-                         "12, phase 6 six, phase 7 one of qwen2-moe-a2.7b's and two of "
-                         "llava-next-mistral-7b's, phase 8 all of xlstm-350m's and "
-                         "three of recurrentgemma-2b's)")
+                    help=f"depth of phase 2's model state, {PHASE2_LAYERS} of qwen1.5-0.5b's "
+                         f"{N_LAYERS} by default (widths are never cut; phases 1 and 3 run "
+                         f"all {N_LAYERS}, phases 4 and 5 {PHASE4_LAYERS}, phase 6 "
+                         f"{PHASE6_LAYERS}, phase 7 {MOE_LAYERS} of qwen2-moe-a2.7b's 24 and "
+                         f"{VLM_LAYERS} of llava-next-mistral-7b's 32, phase 8 all 24 of "
+                         f"xlstm-350m's and {GRIFFIN_LAYERS} of recurrentgemma-2b's 26, "
+                         f"phase 9 all 12 + 12 of whisper-small's)")
     args = ap.parse_args(argv)
 
     # cuBLAS reads this when it makes its handle; phase 4's bit-exact
@@ -2883,7 +3036,17 @@ def main(argv=None):
         t0 = time.perf_counter()
         launches8 = phase8(Path(tmp), report)
         phase_s["8"] = time.perf_counter() - t0
-    launches = [launches2, launches3, launches4, launches5, launches6, launches7, launches8]
+        # room for phase 9: phase 8's roots go too
+        for old in Path(tmp).iterdir():
+            shutil.rmtree(old) if old.is_dir() else old.unlink()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches9 = phase9(Path(tmp), report)
+        phase_s["9"] = time.perf_counter() - t0
+        release_host_cache("after phase 9")
+    launches = [launches2, launches3, launches4, launches5, launches6, launches7, launches8,
+                launches9]
     report["launches"] = {f"phase{i}": n for i, n in enumerate(launches, start=2)}
 
     kernels = []

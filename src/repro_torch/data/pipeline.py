@@ -10,9 +10,10 @@ reproduced in torch, so the batches differ from the reference's; the
 contract is the same.)
 
 The VLM family's batch also holds ``patches``, float32 stub patch
-embeddings (global_batch, n_patches, d_model) drawn standard normal from
-the same generator, so a resume replays them too. The audio family's
-``frames`` come with that family (ROADMAP Queue 1 item 7).
+embeddings (global_batch, n_patches, d_model), and the audio family's
+``frames``, float32 stub frame embeddings (global_batch, enc_seq,
+d_model), each drawn standard normal from the same generator after the
+tokens, so a resume replays them too.
 
 The state ``{"batch_idx": 0-d int32}`` rides inside the train
 checkpoint. It is a host tensor: the host decides which batch to draw.
@@ -34,7 +35,7 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
-    # vlm / audio frontends (stub embeddings; frames not drawn yet)
+    # vlm / audio frontends (stub embeddings)
     n_patches: int = 0
     enc_seq: int = 0
     d_model: int = 0
@@ -70,6 +71,9 @@ class SyntheticTokens:
         if cfg.family == "vlm" and cfg.n_patches:
             batch["patches"] = rng.standard_normal(
                 (cfg.global_batch, cfg.n_patches, cfg.d_model), dtype=np.float32)
+        if cfg.family == "audio" and cfg.enc_seq:
+            batch["frames"] = rng.standard_normal(
+                (cfg.global_batch, cfg.enc_seq, cfg.d_model), dtype=np.float32)
         return batch
 
     def _batch_at(self, idx: int) -> Dict[str, torch.Tensor]:

@@ -1,1 +1,3 @@
-"""Launch tooling of the port: the training driver (``train``)."""
+"""Launch tooling of the port: the training launcher (``train``), the
+H100's roofline terms (``roofline``) and trip-count-corrected HLO text
+costs (``hlo_analysis``)."""

@@ -1,20 +1,22 @@
 """Uniform model facade over the architecture families.
 
-Counterpart of ``repro/models/api.py``. The decoder-only transformer
-(``dense``, ``moe``, ``vlm``), xLSTM (``ssm``) and Griffin (``hybrid``)
-families are ported; the audio family raises (ROADMAP Queue 1 item 7).
-Batch dict keys: ``tokens`` (always), ``patches`` (vlm). ``init`` returns
-the family's module (:class:`~repro_torch.models.transformer.Transformer`,
-:class:`~repro_torch.models.xlstm.XLSTM` or
-:class:`~repro_torch.models.griffin.Griffin`), whose ``state_tree()`` is
+Counterpart of ``repro/models/api.py``: the decoder-only transformer
+(``dense``, ``moe``, ``vlm``), xLSTM (``ssm``), Griffin (``hybrid``) and
+the Whisper encoder-decoder (``audio``). Batch dict keys: ``tokens``
+(always), ``patches`` (vlm), ``frames`` (audio). ``init`` returns the
+family's module (:class:`~repro_torch.models.transformer.Transformer`,
+:class:`~repro_torch.models.xlstm.XLSTM`,
+:class:`~repro_torch.models.griffin.Griffin` or
+:class:`~repro_torch.models.whisper.Whisper`), whose ``state_tree()`` is
 the parameter tree that ``loss``, ``forward``, ``prefill`` and
 ``decode_step`` take, as the reference's ``init`` returns its tree.
 ``param_struct`` gives that tree on the meta device (shapes and dtypes,
 no memory) where the reference gives ``ShapeDtypeStruct`` leaves, and so
 do ``cache_struct`` and ``batch_struct``. A cache is a
 :class:`~repro_torch.models.transformer.DecodeCache` for the
-transformer families and the recurrent state dict of ``init_state``
-for the others.
+transformer families, a :class:`~repro_torch.models.whisper.WhisperCache`
+(self K/V, the cross K/V of the encoder's memory, ``pos``) for whisper,
+and the recurrent state dict of ``init_state`` for the others.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import griffin, transformer, xlstm
+from repro_torch.models import griffin, transformer, whisper, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils.treelib import tree_leaves
 
@@ -37,16 +39,13 @@ _FAMILIES = {
     "vlm": (transformer, transformer.Transformer),
     "ssm": (xlstm, xlstm.XLSTM),
     "hybrid": (griffin, griffin.Griffin),
+    "audio": (whisper, whisper.Whisper),
 }
 
 
 def _family(cfg: ModelConfig):
     if cfg.family in _FAMILIES:
         return _FAMILIES[cfg.family]
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 7)"
-        )
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -55,9 +54,12 @@ def _family_module(cfg: ModelConfig):
 
 
 def _extra_kwargs(cfg: ModelConfig, batch: Dict[str, Any]) -> Dict[str, Any]:
+    kw = {}
     if cfg.family == "vlm" and "patches" in batch:
-        return {"patches": batch["patches"]}
-    return {}
+        kw["patches"] = batch["patches"]
+    if cfg.family == "audio":
+        kw["frames"] = batch["frames"]
+    return kw
 
 
 @dataclass(frozen=True)
@@ -124,20 +126,27 @@ class Model:
         mod = _family_module(self.cfg)
         if mod is transformer:
             return transformer.init_cache(self.cfg, b, s_max, device="meta")
+        if mod is whisper:
+            return whisper.cache_zeros(self.cfg, b, s_max, device="meta")
         return mod.init_state(None, self.cfg, b, device="meta")
 
-    def init_cache(self, params, b: int, s_max: int) -> Any:
-        """A zero cache on the device of ``params``' embedding."""
+    def init_cache(self, params, b: int, s_max: int, memory=None) -> Any:
+        """A zero cache on the device of ``params``' embedding; whisper's
+        holds the cross K/V of the encoder's ``memory``."""
         mod = _family_module(self.cfg)
         if mod is transformer:
             return transformer.init_cache(self.cfg, b, s_max, device=params["embed"].device)
+        if mod is whisper:
+            return whisper.init_cache(params, self.cfg, memory, b, s_max)
         return mod.init_state(params, self.cfg, b)
 
     # -- inputs ---------------------------------------------------------------
     def batch_struct(self, batch_size: int, seq_len: int) -> Dict[str, torch.Tensor]:
         """A batch's tensors on the meta device: a VLM batch's row is
         ``n_patches`` patch embeddings (compute dtype) and the text
-        that fills ``seq_len`` (at least one token)."""
+        that fills ``seq_len`` (at least one token); an audio batch's is
+        ``enc_seq`` frame embeddings (compute dtype) and ``seq_len``
+        tokens."""
         cfg = self.cfg
         _family_module(cfg)
         if cfg.family == "vlm":
@@ -146,6 +155,12 @@ class Model:
                 "tokens": torch.empty((batch_size, n_text), dtype=torch.int32, device="meta"),
                 "patches": torch.empty((batch_size, cfg.n_patches, cfg.d_model),
                                        dtype=cfg.cdt, device="meta"),
+            }
+        if cfg.family == "audio":
+            return {
+                "tokens": torch.empty((batch_size, seq_len), dtype=torch.int32, device="meta"),
+                "frames": torch.empty((batch_size, cfg.enc_seq, cfg.d_model),
+                                      dtype=cfg.cdt, device="meta"),
             }
         return {"tokens": torch.empty((batch_size, seq_len), dtype=torch.int32, device="meta")}
 

@@ -1,13 +1,12 @@
 """Shared neural building blocks on torch tensors.
 
-Counterpart of ``repro/models/layers.py``, dense path: the numerics
-follow the reference op for op (float32 inside the norms, the rotary
-embedding and the SiLU; casts back to the compute dtype where the
+Counterpart of ``repro/models/layers.py``: the numerics follow the
+reference op for op (float32 inside the norms, the rotary embedding,
+the SiLU and the GELU; casts back to the compute dtype where the
 reference casts). The reference's ``_act_ff`` is a sharding pin and a
-no-op without a mesh, so it has no counterpart. ``layer_norm``,
-``gelu_mlp`` and the sinusoidal tables come with the whisper family.
-``new_param`` and ``cross_entropy`` are the port's own: the families
-share them where the reference repeats the same lines in each.
+no-op without a mesh; it comes with the mesh slice. ``new_param`` and
+``cross_entropy`` are the port's own: the families share them where the
+reference repeats the same lines in each.
 """
 from __future__ import annotations
 
@@ -25,6 +24,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)    # jnp.var: population
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +60,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Analytic sinusoidal embeddings (..., d_model) float32 at
+    ``positions`` (any shape), computed in float32 as the reference."""
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=positions.device)
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    inv = torch.exp(-log_base * dim / max(1, d_model // 2 - 1))
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal position embedding table."""
+    pos = np.arange(n_pos)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    inv = np.exp(-np.log(10000.0) * dim / max(1, d_model // 2 - 1))
+    ang = pos * inv
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -61,6 +89,12 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     u = x @ w_up.to(x.dtype)
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down.to(x.dtype)
+
+
+def gelu_mlp(x: torch.Tensor, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    h = x @ w_in.to(x.dtype) + b_in.to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ w_out.to(x.dtype) + b_out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

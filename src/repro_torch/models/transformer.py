@@ -201,17 +201,17 @@ def embed_inputs(params, cfg: ModelConfig, tokens, patches=None):
     return x
 
 
-def _layer_slices(params) -> Tuple[Any, List[Tuple[torch.Tensor, ...]]]:
-    """The treedef of ``params["layers"]`` (nested stacks included) and,
-    per layer, the tuple of its stacks' slices: one ``unbind`` a stack."""
-    named, treedef = flatten_with_names(params["layers"])
+def _layer_slices(params, key: str = "layers") -> Tuple[Any, List[Tuple[torch.Tensor, ...]]]:
+    """The treedef of ``params[key]`` (nested stacks included) and, per
+    layer, the tuple of its stacks' slices: one ``unbind`` a stack."""
+    named, treedef = flatten_with_names(params[key])
     return treedef, list(zip(*(w.unbind(0) for _, w in named)))
 
 
-def _layers(params) -> Iterator[Dict[str, Any]]:
-    """Each layer's parameters as a dict (nested as ``layers`` is) of
-    slices of the stacks."""
-    treedef, per_layer = _layer_slices(params)
+def _layers(params, key: str = "layers") -> Iterator[Dict[str, Any]]:
+    """Each layer's parameters as a dict (nested as ``params[key]`` is)
+    of slices of the stacks."""
+    treedef, per_layer = _layer_slices(params, key)
     for lp in per_layer:
         yield unflatten(treedef, list(lp))
 

@@ -134,18 +134,19 @@ class Server:
         """Greedy decode; returns (generated tokens (B, T_new) int32 on
         the host, final cache on the params' device).
 
-        ``batch["tokens"]`` (a NumPy array or tensor) goes to the params'
-        device.  With ``with_version=True`` also returns the params
+        Every entry of ``batch`` (``tokens``, and a VLM's ``patches`` or
+        an audio model's ``frames``; NumPy arrays or tensors) goes to the
+        params' device.  With ``with_version=True`` also returns the params
         version this generate ran against.  The params reference is
         captured ONCE here: a concurrent :meth:`swap_params` cannot
         change the weights mid-request."""
         params, version = self._current  # the one atomic capture
         dev = params_device(params)
         with torch.inference_mode():
-            prompt = torch.as_tensor(batch["tokens"]).to(dev)
-            s = prompt.shape[1]
+            inputs = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            s = inputs["tokens"].shape[1]
             s_max = self.cfg.s_max or (s + self.cfg.max_new_tokens)
-            cache, logits = self.model.prefill(params, {**batch, "tokens": prompt}, s_max=s_max)
+            cache, logits = self.model.prefill(params, inputs, s_max=s_max)
             elsewhere = {str(t.device) for t in tree_leaves(cache)
                          if isinstance(t, torch.Tensor) and t.device != dev}
             if elsewhere:

@@ -13,11 +13,13 @@ are kept (see :mod:`repro_torch.utils.treelib`).
 parameter or train-state tree into the port's model module of the
 config's family and its optimizer state, the MoE family's nested
 ``layers.moe`` leaves (a float32 router beside bfloat16 params, with
-float32 moments) and the recurrent families' ``blocks`` lists included;
+float32 moments), the recurrent families' ``blocks`` lists and
+whisper's ``enc_layers``/``dec_layers`` stacks included;
 :func:`copy_tree_` loads any tree into another in place (a restore into
 a live train state). :func:`cache_from_numpy` and :func:`cache_to_numpy`
 carry a decode cache between the packages: the transformer's
-``DecodeCache`` (``k``, ``v``, ``pos``) or a recurrent state (dicts,
+``DecodeCache`` (``k``, ``v``, ``pos``), whisper's ``WhisperCache``
+(``k``, ``v``, ``xk``, ``xv``, ``pos``) or a recurrent state (dicts,
 lists of dicts and a ``pos``).
 """
 from __future__ import annotations
@@ -124,22 +126,28 @@ def train_state_from_numpy(tree: Any, model_or_cfg: Any, device: Any = "cuda") -
 
 
 def cache_from_numpy(cache: Any, device: Any = "cuda") -> Any:
-    """A decode cache with NumPy leaves as the port's on ``device``: the
-    JAX package's ``DecodeCache`` (or any ``(k, v, pos)`` named tuple) as
-    the port's :class:`~repro_torch.models.transformer.DecodeCache`, a
-    recurrent state (``{"layers": [...], "pos"}``) as the same tree of
+    """A decode cache with NumPy leaves as the port's on ``device``: a
+    named tuple by its fields (the JAX package's or the port's own), a
+    ``(k, v, pos)`` one as the port's
+    :class:`~repro_torch.models.transformer.DecodeCache` and a ``(k, v,
+    xk, xv, pos)`` one as :class:`~repro_torch.models.whisper.WhisperCache`;
+    a recurrent state (``{"layers": [...], "pos"}``) as the same tree of
     tensors."""
     from repro_torch.kernels.common import resolve_device
     from repro_torch.models.transformer import DecodeCache
+    from repro_torch.models.whisper import WhisperCache
 
     dev = resolve_device(device)
-    if hasattr(type(cache), "_fields"):
-        return DecodeCache(*(_from_numpy(x, dev) for x in cache))
+    fields = getattr(type(cache), "_fields", None)
+    if fields is not None:
+        kind = {c._fields: c for c in (DecodeCache, WhisperCache)}[fields]
+        return kind(*(_from_numpy(x, dev) for x in cache))
     return tree_from_numpy(cache, dev)
 
 
 def cache_to_numpy(cache: Any) -> Any:
     """The port's cache with host NumPy leaves, in the same structure (so
-    ``repro.models.transformer.DecodeCache(*cache_to_numpy(c))`` feeds the
+    ``repro.models.transformer.DecodeCache(*cache_to_numpy(c))`` or
+    ``repro.models.whisper.WhisperCache(*cache_to_numpy(c))`` feeds the
     JAX package, and a recurrent state's dicts go as they are)."""
     return tree_to_numpy(cache)

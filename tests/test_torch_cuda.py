@@ -426,6 +426,35 @@ def test_recurrent_forward_backward_on_the_card_is_bit_equal(cuda, arch):
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_whisper_forward_backward_on_the_card_is_bit_equal(cuda, compute):
+    """Whisper's smoke model (the encoder over stub frames, always
+    recomputed in backward; the decoder's self- and cross-attention and
+    the tied embedding): loss and gradients twice under deterministic
+    algorithms give the same bits, and no op on the path raises under the
+    mode (the embedding gather's backward included)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.models import get_model
+
+    cfg = get_smoke_config("whisper-small").replace(compute_dtype=compute)
+    model = get_model(cfg)
+    module = model.init(torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                                     dtype=torch.int32).cuda(),
+             "frames": torch.randn((4, cfg.enc_seq, cfg.d_model), generator=g).cuda()}
+    leaves = [p for _, p in flatten_with_names(module.state_tree())[0]]
+    out = []
+    with deterministic_algorithms():
+        for _ in range(2):
+            loss, _ = model.loss(module.state_tree(), batch)
+            out.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    assert bool(torch.isfinite(out[0][0]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
 def test_slstm_graph_replays_the_eager_loop(cuda):
     """The sLSTM's time loops on the card replay as CUDA graphs: the
     forward (with and without the saved gates) and the written-out

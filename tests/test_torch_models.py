@@ -26,6 +26,9 @@ from repro_torch.utils.convert import copy_tree_, params_from_numpy, tree_to_num
 from repro_torch.utils.treelib import flatten_with_names
 
 DENSE = ["qwen1.5-0.5b", "tinyllama-1.1b"]
+# the families whose layout and forward/loss this file holds: the dense
+# ones, and whisper (its batch carries frames)
+LAYOUT = DENSE + ["whisper-small"]
 
 
 def rng(seed):
@@ -48,6 +51,17 @@ def tokens(seed, b, s, v):
     return rng(seed).integers(0, v, (b, s)).astype(np.int32)
 
 
+def batch(arch, seed, b, s):
+    """A NumPy batch of ``b`` x ``s`` tokens for ``arch``'s smoke config,
+    with an audio model's frames."""
+    cfg = get_smoke_config(arch)
+    out = {"tokens": tokens(seed, b, s, cfg.vocab_size)}
+    if cfg.family == "audio":
+        out["frames"] = rng(seed + 1).standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def t(x):
     return torch.from_numpy(np.asarray(x))
 
@@ -55,7 +69,7 @@ def t(x):
 # -- structure -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", LAYOUT)
 def test_init_has_the_reference_layout(arch):
     ref_model, _, ref_np = ref_params(arch)
     model = get_model(get_smoke_config(arch))
@@ -107,9 +121,16 @@ def test_copy_tree_checks_names_shapes_and_dtypes():
 
 @pytest.mark.parametrize("arch", ["whisper-small"])
 def test_families_not_ported_yet_raise(arch):
-    model = get_model(get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    """Every family of the reference is ported (whisper's last); a family
+    the port does not know (``arch``'s config under another family name)
+    raises ``ValueError`` wherever the facade looks the family up."""
+    model = get_model(get_smoke_config(arch).replace(family="speech"))
+    with pytest.raises(ValueError, match="unknown family 'speech'"):
         model.init(torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        model.param_struct()
+    with pytest.raises(ValueError, match="unknown family"):
+        model.batch_struct(2, 8)
 
 
 def test_configs_are_the_reference_configs():
@@ -204,22 +225,25 @@ def test_repeat_kv_groups_like_the_reference():
 # -- the whole model -------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", LAYOUT)
 def test_forward_and_loss_match_reference(arch):
     ref_model, ref_p, ref_np = ref_params(arch, seed=1)
     model, module = port_model(arch, ref_np)
-    toks = tokens(6, 3, 40, 256)
-    want_logits, _ = ref_model.forward(ref_p, {"tokens": jnp.asarray(toks)})
-    want_loss, _ = ref_model.loss(ref_p, {"tokens": jnp.asarray(toks)})
+    b = batch(arch, 6, 3, 40)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    tb = {k: t(v) for k, v in b.items()}
+    want_logits, _ = ref_model.forward(ref_p, jb)
+    want_loss, _ = ref_model.loss(ref_p, jb)
     with torch.no_grad():
-        logits, aux = model.forward(module.state_tree(), {"tokens": t(toks)})
-        loss, parts = model.loss(module.state_tree(), {"tokens": t(toks)})
+        logits, aux = model.forward(module.state_tree(), tb)
+        loss, parts = model.loss(module.state_tree(), tb)
     # float32 compute: rounding only
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), rtol=0, atol=1e-5)
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
     assert float(aux) == 0.0 and float(parts["ce"]) == float(loss)
+    extra = {k: v for k, v in tb.items() if k != "tokens"}
     with torch.no_grad():
-        assert torch.equal(module(t(toks))[0], logits)    # the nn.Module call
+        assert torch.equal(module(tb["tokens"], **extra)[0], logits)    # the nn.Module call
 
 
 def test_chunked_forward_matches_reference():
