@@ -16,7 +16,7 @@ same function). Equality is exact (tolerance zero).
 Phase 2 is the main path: the training state of qwen1.5-0.5b at its
 published widths (``src/repro/configs/qwen1_5_0_5b.py``: 24 layers,
 d_model 1024, d_ff 2816, vocab 151936, untied output, QKV bias), cut to
-``--layers`` (12 by default), with AdamW moments, all float32 from a
+``--layers`` (6 by default), with AdamW moments, all float32 from a
 NumPy seed, lives on the card. Three
 steps go through ``CheckpointManager.stage``/``save`` with the device
 pre-codec (strategy stripe_aligned, codec zstd+delta, 1 MiB chunks,
@@ -40,8 +40,8 @@ to ``fused_precodec`` of the same streams; both wall times are logged.
 ``--layers`` cuts phase 2's depth (never a width) and no other phase's.
 
 Phase 4 is the port's trainer (``repro_torch.launch.train.run``) at
-qwen1.5-0.5b's full width cut to 12 of its 24 layers (``PHASE4_LAYERS``,
-since phase 8 came; a 5,584,416,776-byte state; float32 params, bfloat16 compute,
+qwen1.5-0.5b's full width cut to 6 of its 24 layers (``PHASE4_LAYERS``,
+since phase 10 came; a 4,659,204,104-byte state; float32 params, bfloat16 compute,
 batch 4 x 2048 tokens, remat) under deterministic algorithms: run A
 trains steps 1-4 and checkpoints steps 2 and 4 with the device
 pre-codec (so ``fused_precodec`` runs on the trainer's own saves); run
@@ -79,7 +79,7 @@ memory. ``--layers`` never cuts phase 5.
 
 Phase 6 is the control plane (``repro_torch.control``): two training
 jobs, each holding a full-width train state on the card (its own seed),
-cut to 12 of the 24 layers (``PHASE6_LAYERS``), checkpoint through one
+cut to 6 of the 24 layers (``PHASE6_LAYERS``), checkpoint through one
 ``ControlPlane`` over one PFS root (budget of 2 pending flushes, a
 bandwidth cap of a quarter of the rate at which phase 2's anchor flushed
 unthrottled). ``finetune`` (priority 1) saves its anchor, whose flush
@@ -108,8 +108,9 @@ about four times its state): one step at batch 2 x 256 against the
 port's CPU (also the aux loss, and every router selection that flips
 between the two must be a near tie, ``ROUTER_TIE_TOL``); run A trains
 steps 1-3 at batch 4 x 2048 (the trainer's deterministic ``run``)
-saving steps 2 (staged beside step 3) and 3 with the device pre-codec,
-each as an anchor; run B restores step 2 from the PFS with L1 dropped and
+saving step 2 (an anchor, staged beside step 3; the last step is not
+saved, as in phases 8-10) with the device pre-codec; run B restores
+step 2 from the PFS with L1 dropped and
 replays step 3, which must equal run A's byte for byte, digest for
 digest, cursor for cursor; prefill of 2 x 2048 and 16 decode steps from
 run B's params against the CPU (``SERVE_REF_TOL`` on every step routed
@@ -186,7 +187,24 @@ save's and restore's times, prefill and decode times, the snapshot's
 times, and ``roofline.model_flops`` (6·N·D over the decoder's tokens
 only) over the step and ``PEAK_FLOPS``. ``--layers`` never cuts phase 9.
 
-After phases 2 and 4-6, within phases 7 and 8, and after phase 9, the pinned host blocks that
+Phase 10 runs the mesh layer: phase 4's model (qwen1.5-0.5b at full
+width, ``PHASE4_LAYERS`` of its 24 layers), batch 4 x 2048, seed,
+``TrainConfig`` and checkpoint config through the trainer on
+``make_host_mesh("cuda")``, a 1x1 ``("data", "model")`` ``DeviceMesh``
+on an nccl group of world size 1: the state placed by
+``train_state_specs`` (the reference's partition rules; every leaf a
+DTensor with those placements), each step ``make_train_step``'s. Run A
+takes steps 1-3 saving step 2 (an anchor, staged beside step 3) with the
+device pre-codec, which reads the DTensor leaves' local tensors; run B
+restores step 2 from the PFS with L1 dropped into its mesh-placed state
+and replays step 3 byte for byte, digest for digest, cursor for cursor.
+Step 2's chunk digests and leaf table must equal phase 4's step 2: on
+one device the mesh step is ``build_train_step``'s bit for bit. It
+prints the steps' times, the save's window and flush, the restore and
+peak device memory. The group is destroyed at the end. ``--layers``
+never cuts phase 10.
+
+After phases 2 and 4-6, within phases 7 and 8, and after phases 9 and 10, the pinned host blocks that
 PyTorch's caching host allocator keeps (the pre-codec's D2H buffers) go
 back to the system (``release_host_cache``): kept, they filled the
 host's 96 GiB in phase 7.
@@ -223,12 +241,13 @@ SEED = 20211203
 # qwen1.5-0.5b (src/repro/configs/qwen1_5_0_5b.py)
 VOCAB, D_MODEL, D_FF, N_LAYERS = 151936, 1024, 2816, 24
 # the depths of qwen1.5-0.5b's phases, cut (never a width) so that the
-# script ends well within the 1,200 s a run may take: phase 2's default
-# and phase 6's (12 since phase 7 came), phases 4 and 5's (12 since phase
-# 8; 24 before)
-PHASE2_LAYERS = 12
-PHASE6_LAYERS = 12
-PHASE4_LAYERS = 12
+# script ends within the 1,200 s a run may take: phase 2's default and
+# phase 6's (12 since phase 7 came, 6 since phase 10), phases 4, 5 and
+# 10's (12 since phase 8, 6 since phase 10; 24 before). The embedding
+# and head are 80 % of the state at 6 layers.
+PHASE2_LAYERS = 6
+PHASE6_LAYERS = 6
+PHASE4_LAYERS = 6
 LAYER_SHAPES = {
     "wq": (D_MODEL, D_MODEL), "wk": (D_MODEL, D_MODEL),
     "wv": (D_MODEL, D_MODEL), "wo": (D_MODEL, D_MODEL),
@@ -759,6 +778,44 @@ def restore_step(root, step, target):
     mgr.close()
     assert got_step == step
     return tree, secs, rr
+
+
+def ckpt_chunk_digests(root, step):
+    """The device pre-codec's per-chunk digests of ``step`` on the PFS
+    under ``root`` (its manifest's chunk table) with its leaf table: the
+    chunk count and a SHA-256 over both."""
+    import hashlib
+
+    from repro_torch.core.serialize import Manifest
+
+    path = Path(root) / "pfs" / f"step_{step:08d}" / "manifest.json"
+    man = Manifest.from_json(path.read_text())
+    if man.chunks is None or man.chunks.digest is None:
+        raise AssertionError(f"step {step} under {root}: no chunk digests")
+    h = hashlib.sha256(man.chunks.digest.tobytes())
+    h.update(json.dumps([(l.name, l.dtype, list(l.shape), l.offset, l.size)
+                         for l in man.leaves]).encode())
+    return {"chunks": len(man.chunks.digest), "sha256": h.hexdigest()}
+
+
+def check_placed(state, cfg, tcfg, mesh, what):
+    """Every leaf of the train state ``state`` a DTensor on ``mesh`` with
+    the placements ``train_state_specs`` gives it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import get_model
+    from repro_torch.models.sharding import is_spec, to_placements
+    from repro_torch.train import train_state_specs
+    from repro_torch.utils.treelib import tree_leaves
+
+    specs = tree_leaves(train_state_specs(get_model(cfg), mesh, tcfg), is_leaf=is_spec)
+    named = leaves(state)
+    if len(named) != len(specs):
+        raise AssertionError(f"{what}: {len(named)} leaves for {len(specs)} specs")
+    for (name, x), spec in zip(named, specs):
+        if not isinstance(x, DTensor) or x.device_mesh is not mesh or \
+                tuple(x.placements) != to_placements(spec, mesh):
+            raise AssertionError(f"{what}: leaf {name} is not placed by {spec}")
 
 
 def step_row(st, restore_s, rr):
@@ -1315,7 +1372,8 @@ def phase4_reference_step(cfg, tcfg, seq_len, report, *, n_layers=2, global_batc
 
 
 def train_and_replay(cfg, root, report, tag, *, seq_len, global_batch, steps, ckpt_every,
-                     save_last=True, ckpt_kw=None, around_a=None, log_a=None, keep_a=False):
+                     save_last=True, ckpt_kw=None, around_a=None, log_a=None, keep_a=False,
+                     tcfg=None, mesh=None):
     """The trainer (``run``) on ``cfg`` at batch ``global_batch`` x
     ``seq_len`` under ``root``: run A trains steps 1..``steps`` with a
     device pre-codec save every ``ckpt_every`` steps and, with
@@ -1332,16 +1390,22 @@ def train_and_replay(cfg, root, report, tag, *, seq_len, global_batch, steps, ck
     ``names``, ``digests`` and data ``cursor`` (with ``keep_a`` also its
     state's leaves, ``state_a``); ``b``, run B's ``TrainRun``,
     ``run_b_s`` and ``resume``, the step it restored; the kernel
-    ``launches`` over both runs."""
+    ``launches`` over both runs. ``tcfg``: the runs' ``TrainConfig``
+    (default lr 3e-4 over ``steps``). With a ``mesh`` both runs place
+    their state on it (``run(..., mesh=)``) and every leaf of both must be
+    a DTensor laid out by ``train_state_specs``; the comparisons read
+    the whole tensors."""
     import numpy as np
     import torch
 
     from repro_torch.core import CheckpointConfig, theta_like
     from repro_torch.launch.train import run
     from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.utils.convert import whole_tensor
+    from repro_torch.utils.treelib import tree_map
 
     data_cfg = data_config(cfg, seq_len, global_batch)
-    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=steps), remat=True)
+    tcfg = tcfg or TrainConfig(opt=OptConfig(lr=3e-4, total_steps=steps), remat=True)
     ckpt = CheckpointConfig(
         root=str(root), cluster=theta_like(4, 4), strategy="stripe_aligned",
         codec="zstd+delta", chunk_size=CHUNK_SIZE, device_precodec=True,
@@ -1361,7 +1425,12 @@ def train_and_replay(cfg, root, report, tag, *, seq_len, global_batch, steps, ck
 
     def run_a():
         return run(cfg, data_cfg, tcfg, ckpt, steps=steps, ckpt_every=ckpt_every,
-                   device=DEVICE, seed=SEED, log=line_a, save_last=save_last)
+                   device=DEVICE, seed=SEED, log=line_a, save_last=save_last, mesh=mesh)
+
+    def whole(state, what):
+        if mesh is not None:
+            check_placed(state, cfg, tcfg, mesh, what)
+        return tree_map(whole_tensor, state)
 
     t0 = time.perf_counter()
     a = around_a(run_a) if around_a else run_a()
@@ -1372,6 +1441,7 @@ def train_and_replay(cfg, root, report, tag, *, seq_len, global_batch, steps, ck
     if read_counts()["fused_precodec"] == 0:
         raise AssertionError(f"{tag}: fused_precodec was not launched on the trainer's saves")
     # run A's state stays on the card for the comparison with run B's
+    a.state = whole(a.state, f"{tag} run A")
     state_a = leaves(a.state)
     out.update(names=[n for n, _ in state_a], digests=device_digests(a.state),
                cursor=int(a.data.state_tree()["batch_idx"]), losses=a.losses,
@@ -1383,8 +1453,9 @@ def train_and_replay(cfg, root, report, tag, *, seq_len, global_batch, steps, ck
     drop_l1(manager(root, theta_like(4, 4))).close()
     t0 = time.perf_counter()
     b = run(cfg, data_cfg, tcfg, ckpt, steps=steps, ckpt_every=0, resume=resume,
-            device=DEVICE, seed=SEED + 1, log=lambda line: log(f"{tag} B {line}"))
+            device=DEVICE, seed=SEED + 1, log=lambda line: log(f"{tag} B {line}"), mesh=mesh)
     out.update(b=b, run_b_s=time.perf_counter() - t0)
+    b.state = whole(b.state, f"{tag} run B")
     losses_a = out["losses"]
     if b.restored_step != resume or \
             np.asarray(b.losses).tobytes() != np.asarray(losses_a[resume:]).tobytes():
@@ -1453,6 +1524,7 @@ def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
                           global_batch=global_batch, steps=4, ckpt_every=2, keep_a=True)
     b, digests = tr.pop("b"), tr["digests"]
     params_digests = digests[[n.startswith("['params']") for n in tr["names"]]]
+    step2_chunks = ckpt_chunk_digests(root, 2)      # phase 10 saves the same state
 
     # step 4 from the PFS, elastic 16 -> 3 ranks, L1 of all 4 saving nodes dropped
     tree, restore4_s, _ = restore_step(root, 4, meta_train_target(cfg))
@@ -1487,7 +1559,7 @@ def phase4(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
         peak_device_bytes=peak, run_a_s=run_a_s, run_b_s=run_b_s,
         restore_step4_s=restore4_s, restore_step2_s=restore2_s,
         saves=[step_row(st, None, None) for st in saves], launches=launches,
-        profile=profile, reference_step_err=ref["err"],
+        profile=profile, reference_step_err=ref["err"], step2_chunk_digests=step2_chunks,
     )
     row["wall_s"] = time.perf_counter() - t_phase
     report["phase4"] = row
@@ -2261,8 +2333,8 @@ def phase7_moe(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4, ref
                serve_kw=None):
     """qwen2-moe-a2.7b through the port's trainer at its published widths
     (one layer), as phase 4 does for the dense model: run A trains steps
-    1-3 with device pre-codec saves of steps 2 (an anchor, staged after
-    step 2 and saved after step 3) and 3; run B, a fresh model, pipeline
+    1-3 with a device pre-codec save of step 2 (an anchor, staged after
+    step 2 and saved after step 3); run B, a fresh model, pipeline
     and manager on the same root, restores step 2 from the PFS with L1
     dropped and replays step 3, which must equal run A's byte for byte,
     digest for digest and cursor for cursor. Before, one step against the
@@ -2303,11 +2375,12 @@ def phase7_moe(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4, ref
         if line.startswith("step"):
             marks.append(len(auxes[0]))
 
-    # every save an anchor (delta_every=1): the trainer also saves its last
-    # step, 3, and a delta of this state with every chunk dirty took 104.5 s
-    # of window against the anchor's 32.3 s (H100 80GB HBM3, 700 W; PERF.md)
+    # step 2 only, an anchor: run B reads nothing else, and the last step's
+    # save (an anchor too: a delta of this state with every chunk dirty took
+    # 104.5 s of window against the anchor's 32.3 s) cost 51.8 s of window
+    # and 19.8 s of flush (H100 80GB HBM3, 700 W; PERF.md)
     tr = train_and_replay(cfg, tmp / "moe", report, "phase7 moe", seq_len=seq_len,
-                          global_batch=global_batch, steps=3, ckpt_every=2,
+                          global_batch=global_batch, steps=3, ckpt_every=2, save_last=False,
                           ckpt_kw=dict(delta_every=1), around_a=around_a, log_a=log_a)
     b, auxes = tr.pop("b"), auxes[0]
     losses_a, step_s, saves, peak = tr["losses"], tr["step_s"], tr["saves"], tr["peak"]
@@ -2916,6 +2989,79 @@ def phase9(tmp, report, *, model_cfg=None, train_kw=None, ref_kw=None, serve_ref
     return launches
 
 
+# -- phase 10 -------------------------------------------------------------
+
+
+def phase10(tmp, report, *, model_cfg=None, seq_len=2048, global_batch=4):
+    """The mesh layer on the card: phase 4's model (``model_cfg``; ``main``
+    passes qwen1.5-0.5b at ``PHASE4_LAYERS``), batch, seed, ``TrainConfig``
+    and checkpoint config through ``run(..., mesh=make_host_mesh())``, a
+    1x1 ``("data", "model")`` mesh on a process group of world size 1
+    (nccl on the card): the state placed by ``train_state_specs``, each
+    step ``make_train_step``'s. Run A takes steps 1-3 saving step 2 beside
+    step 3; run B restores step 2 from the PFS with L1 dropped into its
+    mesh-placed state and replays step 3 byte for byte
+    (:func:`train_and_replay`; every leaf of both a DTensor placed by the
+    specs). Step 2's chunk digests and leaf table must equal phase 4's
+    step 2. The group is destroyed at the end. Returns the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import OptConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or get_config("qwen1.5-0.5b")
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, total_steps=4), remat=True)   # phase 4's
+    root = tmp / "mesh"
+    card = report.get("card")
+    mesh = make_host_mesh(DEVICE)
+    try:
+        log(f"phase10 model: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+            f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+            f"batch={global_batch}x{seq_len} on {mesh} ({dist.get_backend()} group of "
+            f"world size {dist.get_world_size()})")
+        tr = train_and_replay(cfg, root, report, "phase10", seq_len=seq_len,
+                              global_batch=global_batch, steps=3, ckpt_every=2,
+                              save_last=False, tcfg=tcfg, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    b = tr.pop("b")
+    step2 = ckpt_chunk_digests(root, 2)
+    want = report["phase4"]["step2_chunk_digests"]
+    if step2 != want:
+        raise AssertionError(f"phase10: step 2's chunk digests {step2} != phase 4's {want}")
+    st = tr["saves"][0]
+    fl = st.flush
+    clean_ms = 1e3 * b.step_s[0]
+    row = dict(model=cfg.name, n_layers=cfg.n_layers, batch=global_batch, seq_len=seq_len,
+               mesh=str(mesh), losses=tr["losses"], step_s=tr["step_s"],
+               replay_step_ms=clean_ms,
+               replay_tokens_per_s=global_batch * seq_len / clean_ms * 1e3,
+               peak_device_bytes=tr["peak"], run_a_s=tr["run_a_s"], run_b_s=tr["run_b_s"],
+               restore_s=b.restore_s, restore_bytes_read=b.restore_read.bytes_read,
+               saves=[step_row(st, None, None) for st in tr["saves"]],
+               step2_chunk_digests=step2, launches=tr["launches"])
+    del b, tr
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t_phase
+    report["phase10"] = row
+    log(f"phase10 step_ms (run A, synchronised, checkpoint beside) "
+        f"{[round(x * 1e3, 3) for x in row['step_s']]}; replayed step 3 (run B, no "
+        f"checkpoint) {clean_ms:.3f} ms, tokens_per_s={row['replay_tokens_per_s']:.1f}; "
+        f"peak_device_bytes={row['peak_device_bytes']} [{card}]")
+    log(f"phase10 save step 2: stage_s={st.stage_s:.4f} window_s="
+        f"{st.encode_time + st.local_time:.4f} flush_s={fl.duration if fl else None}; "
+        f"restore_s={row['restore_s']:.3f} ({row['restore_bytes_read']} bytes from the PFS, "
+        f"L1 dropped) [{card}]")
+    log(f"phase10 step 2's {step2['chunks']} chunk digests equal phase 4's step 2; "
+        f"wall {row['wall_s']:.1f} s [{card}]; launches: {row['launches']}")
+    return row["launches"]
+
+
 # (name, report key, source, the TPU kernel's body it replaces)
 KERNEL_ROWS = [
     ("fused_precodec", "fused", "src/repro_torch/kernels/fused/csrc/fused_precodec.cu",
@@ -2940,7 +3086,8 @@ def main(argv=None):
                          f"{PHASE6_LAYERS}, phase 7 {MOE_LAYERS} of qwen2-moe-a2.7b's 24 and "
                          f"{VLM_LAYERS} of llava-next-mistral-7b's 32, phase 8 all 24 of "
                          f"xlstm-350m's and {GRIFFIN_LAYERS} of recurrentgemma-2b's 26, "
-                         f"phase 9 all 12 + 12 of whisper-small's)")
+                         f"phase 9 all 12 + 12 of whisper-small's, phase 10 "
+                         f"{PHASE4_LAYERS} of qwen1.5-0.5b's)")
     args = ap.parse_args(argv)
 
     # cuBLAS reads this when it makes its handle; phase 4's bit-exact
@@ -3044,9 +3191,18 @@ def main(argv=None):
         t0 = time.perf_counter()
         launches9 = phase9(Path(tmp), report)
         phase_s["9"] = time.perf_counter() - t0
+        # room for phase 10: phase 9's roots go too
+        for old in Path(tmp).iterdir():
+            shutil.rmtree(old) if old.is_dir() else old.unlink()
+        gc.collect()
+        torch.cuda.empty_cache()
         release_host_cache("after phase 9")
+        t0 = time.perf_counter()
+        launches10 = phase10(Path(tmp), report, model_cfg=qwen)
+        phase_s["10"] = time.perf_counter() - t0
+        release_host_cache("after phase 10")
     launches = [launches2, launches3, launches4, launches5, launches6, launches7, launches8,
-                launches9]
+                launches9, launches10]
     report["launches"] = {f"phase{i}": n for i, n in enumerate(launches, start=2)}
 
     kernels = []

@@ -25,7 +25,10 @@ the per-leaf host path stays as the executable reference spec the
 staged stream is asserted byte-identical against.
 
 Unlike the JAX package, 64-bit leaves are accepted on the device path:
-torch never narrows them.
+torch never narrows them. A DTensor leaf (a state placed on a mesh) is
+read as its whole tensor (``utils.convert.whole_tensor``: its local
+tensor on a mesh of one device), so it stages the bytes of the same
+state of plain tensors.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from repro_torch.kernels.quantize.ops import (
     quantize,
     quantize_blocks_needed,
 )
+from repro_torch.utils.convert import whole_tensor
 from repro_torch.utils.treelib import flatten_with_names, tree_leaves, tree_map, unflatten
 
 _FLOATS = {"float32", "float64", "bfloat16", "float16"}
@@ -88,7 +92,7 @@ def _is_float_leaf(x: Any) -> bool:
 
 
 def _as_tensor(x: Any) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return whole_tensor(x) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
 def quantize_tree(state: Any) -> Any:

@@ -53,6 +53,10 @@ machines without the optional dependency).  One compressor/decompressor
 object is reused per worker thread; the backend that encoded a
 checkpoint is recorded in the manifest (``codec_impl``) so decode always
 uses the matching one.
+
+A DTensor leaf (a state placed on a mesh) serializes as its whole
+tensor (``utils.convert.whole_tensor``), the bytes of the same state of
+plain tensors; a restore hands back plain tensors whatever the target.
 """
 from __future__ import annotations
 
@@ -69,6 +73,7 @@ import torch
 from repro_torch.core.cluster import ClusterSpec
 from repro_torch.core.integrity import crc32
 from repro_torch.kernels.checksum.ref import digest_ref
+from repro_torch.utils.convert import whole_tensor
 from repro_torch.utils.treelib import flatten_with_names, unflatten
 
 try:
@@ -397,7 +402,7 @@ def leaf_to_np(leaf: Any) -> Tuple[np.ndarray, str]:
         arr = np.asarray(leaf)
         return arr, str(arr.dtype)
     name = _TORCH_NAMES[leaf.dtype]
-    t = leaf.detach().cpu().contiguous()
+    t = whole_tensor(leaf).detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), name
     return t.numpy(), name
@@ -438,7 +443,7 @@ def serialize_tree(
     off = 0
     for name, leaf in named:
         if isinstance(leaf, torch.Tensor):
-            src = leaf.detach()
+            src = whole_tensor(leaf).detach()
             size = src.numel() * src.element_size()
         else:
             src = np.asarray(leaf)

@@ -1,3 +1,4 @@
 """Launch tooling of the port: the training launcher (``train``), the
-H100's roofline terms (``roofline``) and trip-count-corrected HLO text
-costs (``hlo_analysis``)."""
+mesh builders (``mesh``), the meta-device dry run of every cell
+(``dryrun``), the H100's roofline terms (``roofline``) and
+trip-count-corrected HLO text costs (``hlo_analysis``)."""

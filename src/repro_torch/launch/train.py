@@ -1,7 +1,9 @@
 """End-to-end training driver with aggregated async checkpointing.
 
 Counterpart of ``repro/launch/train.py``, with the same flags and
-printed lines, plus ``--device`` (default ``cuda``) and no mesh.
+printed lines, plus ``--device`` (default ``cuda``). As the reference's
+CLI, ``main`` trains on the host mesh (``make_host_mesh``): the state is
+placed by the partition rules and stepped by ``make_train_step``.
 Example (CPU smoke scale):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
@@ -17,6 +19,13 @@ call with their own :class:`~repro_torch.core.engine.CheckpointConfig`
 With the device pre-codec on, step N is staged on the device right
 after it (``CheckpointManager.stage``) and saved after step N+1 has
 run, so the fused pass and the dirty-chunk copy overlap the next step.
+
+With a ``mesh``, :func:`run` places the state (and a restored one) on
+it by ``train_state_specs`` and steps it with ``make_train_step``;
+without one it steps plain tensors with ``build_train_step``. On a mesh
+of more than one process, rank 0 alone holds the checkpoint manager (the
+reference's single controller): before a save every rank gathers the
+whole state (a collective), and a restore on rank 0 is broadcast.
 """
 from __future__ import annotations
 
@@ -29,14 +38,20 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import CheckpointConfig, CheckpointManager, SaveStats, theta_like
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import ModelConfig, get_model
-from repro_torch.train import OptConfig, TrainConfig, build_train_step, init_train_state
-from repro_torch.utils.convert import copy_tree_
+from repro_torch.models.sharding import place
+from repro_torch.train import (
+    OptConfig, TrainConfig, build_train_step, init_train_state, make_train_step,
+)
+from repro_torch.utils.convert import copy_tree_, whole_tensor
+from repro_torch.utils.treelib import tree_leaves, tree_map
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -96,6 +111,7 @@ def run(
     seed: int = 0,
     log: Callable[[str], None] = print,
     save_last: bool = True,
+    mesh: Any = None,
 ) -> TrainRun:
     """Train to ``steps``, checkpointing every ``ckpt_every`` steps and
     at the last (``ckpt_every=0``: never; ``save_last=False``: all but the
@@ -103,16 +119,19 @@ def run(
     ``ckpt_cfg``. ``resume`` restores the newest step (``True``; a cold
     start when there is none) or the given step before training on.
     The run uses deterministic algorithms (and cuBLAS's fixed workspace
-    on a card), so a resumed run replays bit for bit."""
+    on a card), so a resumed run replays bit for bit. ``mesh``: a
+    ``DeviceMesh`` to place the state on (module docstring)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         # read when cuBLAS makes its handle: before the first matmul
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    mgr = CheckpointManager(ckpt_cfg) if ckpt_cfg is not None else None
+    lead = mesh is None or dist.get_rank() == 0
+    mgr = CheckpointManager(ckpt_cfg) if ckpt_cfg is not None and lead else None
     try:
         with deterministic_algorithms():
             return _loop(model_cfg, data_cfg, tcfg, mgr, steps=steps, ckpt_every=ckpt_every,
-                         resume=resume, dev=dev, seed=seed, log=log, save_last=save_last)
+                         resume=resume, dev=dev, seed=seed, log=log, save_last=save_last,
+                         mesh=mesh, saving=ckpt_cfg is not None)
     finally:
         if mgr is not None:
             mgr.close()
@@ -141,30 +160,68 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _restore(mgr, target, resume, mesh):
+    """``(step, restored)`` from ``mgr``; raises ``FileNotFoundError``
+    when there is no checkpoint to restore. On a mesh of more than one
+    process rank 0 restores and broadcasts the whole tensors; every rank
+    returns them."""
+    step, restored = None, None
+    one = mesh is None or dist.get_world_size() == 1
+    if mgr is not None:
+        try:
+            step, restored = mgr.restore(target, step=None if resume is True else int(resume))
+        except FileNotFoundError:
+            if one:
+                raise
+    if one:
+        return step, restored
+    box = [step]
+    dist.broadcast_object_list(box, src=0)
+    if box[0] is None:
+        raise FileNotFoundError("rank 0 found no checkpoint to restore")
+    if restored is None:
+        restored = tree_map(lambda x: whole_tensor(x).clone(), target)
+    else:
+        tree_map(whole_tensor, target)   # the gather the other ranks make
+    for leaf in tree_leaves(restored):
+        dist.broadcast(leaf, src=0)
+    return box[0], restored
+
+
 def _loop(model_cfg, data_cfg, tcfg, mgr, *, steps, ckpt_every, resume, dev, seed, log,
-          save_last):
+          save_last, mesh, saving):
     model = get_model(model_cfg)
     data = SyntheticTokens(data_cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = init_train_state(model, gen, tcfg, dev)
-    step_fn = build_train_step(model, tcfg)
+    if mesh is None:
+        step_fn = build_train_step(model, tcfg)
+    else:
+        step_fn, state_specs, _ = make_train_step(model, tcfg, mesh, data.peek(0))
+        state = place(state, mesh, state_specs)
+    # a mesh of more than one process: every rank gathers the whole
+    # state for rank 0's manager
+    gather = mesh is not None and dist.get_world_size() > 1
     out = TrainRun(state=state, data=data)
 
     start = 0
     if resume is not False:
-        if mgr is None:
+        if not saving:
             raise ValueError("resume needs a checkpoint config")
         try:
             t0 = time.perf_counter()
             target = {"train": state, "data": data.state_tree()}
-            step, restored = mgr.restore(target, step=None if resume is True else int(resume))
-            copy_tree_(state, restored["train"])
+            step, restored = _restore(mgr, target, resume, mesh)
+            if mesh is None:
+                copy_tree_(state, restored["train"])
+            else:
+                state = out.state = place(restored["train"], mesh, state_specs)
             data.load_state(restored["data"])
-            del restored
+            del restored, target
             _sync(dev)
             out.restored_step, out.restore_s = step, time.perf_counter() - t0
-            out.restore_read = mgr.last_read_result
-            start = int(state["step"])
+            out.restore_read = mgr.last_read_result if mgr is not None else None
+            start = int(whole_tensor(state["step"]))
             log(f"[resume] restored step {step} (train step {start})")
         except FileNotFoundError:
             if resume is not True:
@@ -196,8 +253,11 @@ def _loop(model_cfg, data_cfg, tcfg, mgr, *, steps, ckpt_every, resume, dev, see
             save(*staged)
             staged = None
         due = ckpt_every > 0 and (save_last if i + 1 == steps else (i + 1) % ckpt_every == 0)
-        if mgr is not None and due:
-            full_state = {"train": state, "data": data.state_tree()}
+        if saving and due:
+            train = tree_map(whole_tensor, state) if gather else state
+            if mgr is None:    # not rank 0: the gather was this rank's part
+                continue
+            full_state = {"train": train, "data": data.state_tree()}
             if mgr.stage(i + 1, full_state):
                 staged = (i + 1, full_state)
             else:
@@ -250,8 +310,13 @@ def main(argv=None) -> int:
         partner_replication=args.partner_replication,
         device=args.device,
     )
-    result = run(cfg, data_cfg, tcfg, ckpt_cfg, steps=args.steps,
-                 ckpt_every=args.ckpt_every, resume=args.resume, device=args.device)
+    mesh = make_host_mesh(args.device)
+    try:
+        result = run(cfg, data_cfg, tcfg, ckpt_cfg, steps=args.steps,
+                     ckpt_every=args.ckpt_every, resume=args.resume, device=args.device,
+                     mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     if result.flush_errors:
         print("flush errors:", result.flush_errors)
         return 1

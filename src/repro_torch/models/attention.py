@@ -13,14 +13,18 @@ keeps the reference's value semantics: ``cache_update`` returns a new
 cache and never writes into the one it is given (a kept cache can be
 decoded on from again, as a serving snapshot is), and the cache's
 position stays a 0-d int32 tensor on the cache's device, so a decode
-step reads nothing back to the host. ``pad_heads_for_tp`` comes with
-tensor parallelism (a no-op without a mesh).
+step reads nothing back to the host. ``pad_heads_for_tp`` zero-pads
+the heads to a multiple of the tensor-parallel degree (a no-op without
+an ``activation_sharding`` mesh).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.models.sharding import tp_size
 
 NEG_INF = -1e30
 
@@ -36,6 +40,28 @@ def _scores_mask(
     if window is not None:
         m &= ki > qi - window
     return m
+
+
+def pad_heads_for_tp(q, k, v):
+    """Zero-pad the head dim to the next TP multiple.
+
+    Archs whose head count doesn't divide TP (llama4: 40, gemma: 10,
+    whisper: 12 over 16-way TP) would otherwise replicate the whole
+    attention computation on every model shard. Padded heads produce
+    garbage that is sliced off before the output projection, so numerics
+    are unchanged.
+
+    Returns (q, k, v, original_head_count); no-op without a mesh context
+    or when heads already divide TP.
+    """
+    tp = tp_size()
+    h = q.shape[2]
+    if tp <= 1 or h % tp == 0:
+        return q, k, v, h
+    k = repeat_kv(k, h)
+    v = repeat_kv(v, h)
+    pad = (0, 0, 0, -(-h // tp) * tp - h)     # (hd: none, heads: to hp)
+    return F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), h
 
 
 def repeat_kv(k: torch.Tensor, h_q: int) -> torch.Tensor:

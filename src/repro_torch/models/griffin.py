@@ -20,9 +20,9 @@ The gate weights ``w_r``, ``b_r``, ``w_i``, ``b_i`` and ``lam`` stay
 float32 whatever the parameter dtype, as in the reference, so their
 AdamW moments are float32 too. ``blocks`` is a list of per-layer dicts
 (kinds differ); :meth:`Griffin.state_tree` is the reference's tree
-(embeddings tied, no ``out``). ``pad_heads_for_tp`` and ``shard_act``
-are no-ops without a mesh and come with the mesh slice (ROADMAP Queue 1
-item 7). ``decode_step`` returns a new state and leaves the given one
+(embeddings tied, no ``out``). ``pad_heads_for_tp`` (10 heads pad to
+16 under 16-way TP) and the ``shard_act`` pins sit where the reference
+has them; they are no-ops without a mesh. ``decode_step`` returns a new state and leaves the given one
 unchanged: each ring write goes into a clone.
 """
 from __future__ import annotations
@@ -34,9 +34,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import NEG_INF, attention, repeat_kv, write_at_
+from repro_torch.models.attention import (
+    NEG_INF, attention, pad_heads_for_tp, repeat_kv, write_at_,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, cross_entropy, new_param, rms_norm
+from repro_torch.models.sharding import shard_act
 from repro_torch.models.xlstm import _conv_causal, _conv_step
 
 _C = 8.0  # RG-LRU gate sharpness constant (Griffin paper)
@@ -91,6 +94,8 @@ def rglru_scan(p, x, *, chunk: int = 512):
         _, b_c = _assoc_scan(a, b)
         return b_c.to(x.dtype)  # h_0 = 0 => h_t = b_cumulative
 
+    # the gate weights pinned once, outside the chunk loop
+    p = dict(p, w_r=shard_act(p["w_r"], None, "tp"), w_i=shard_act(p["w_i"], None, "tp"))
     h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32, device=x.device)
     hs = []
     for xi in x.split(chunk, dim=1):
@@ -144,8 +149,9 @@ def init_block(cfg: ModelConfig, kind: str, generator, device) -> nn.ParameterDi
 def _mlp(p, cfg: ModelConfig, x):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     dt = h.dtype
-    g = h @ p["m_gate"].to(dt)
-    u = h @ p["m_up"].to(dt)
+    kinds = ("dp",) + (None,) * (h.ndim - 2) + ("tp",)
+    g = shard_act(h @ p["m_gate"].to(dt), *kinds)
+    u = shard_act(h @ p["m_up"].to(dt), *kinds)
     z = F.gelu(g.float(), approximate="tanh").to(dt) * u
     return x + z @ p["m_down"].to(dt)
 
@@ -155,13 +161,14 @@ def _rglru_in(p, cfg: ModelConfig, x):
     GeLU gate, from the normed residual stream."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     dt = h.dtype
-    xr = h @ p["w_x"].to(dt)
+    xr = shard_act(h @ p["w_x"].to(dt), "dp", None, "tp")
     gate = F.gelu((h @ p["w_gate"].to(dt)).float(), approximate="tanh").to(dt)
     return xr, gate
 
 
 def _rglru_out(p, cfg: ModelConfig, x, y, gate):
-    x = x + (y * gate) @ p["w_out"].to(x.dtype)
+    y = shard_act(y, "dp", None, "tp")
+    x = shard_act(x + (y * gate) @ p["w_out"].to(x.dtype), "dp", None, None)
     return _mlp(p, cfg, x)
 
 
@@ -192,7 +199,9 @@ def _attn_out(p, cfg: ModelConfig, x, o):
 
 def _attn_block_kv(p, cfg: ModelConfig, x, positions):
     q, k, v = _attn_qkv(p, cfg, x, positions)
-    o = attention(q, k, v, causal=True, window=cfg.window, chunk_q=1024)
+    qp, kp, vp, n_h = pad_heads_for_tp(q, k, v)
+    qp = shard_act(qp, "dp", None, "tp", None)
+    o = attention(qp, kp, vp, causal=True, window=cfg.window, chunk_q=1024)[:, :, :n_h]
     return _attn_out(p, cfg, x, o), k, v
 
 
@@ -237,7 +246,7 @@ def _embed(params, cfg: ModelConfig, tokens):
     """The token embeddings scaled by sqrt(d_model), computed in the
     compute dtype as the reference computes it."""
     scale = torch.sqrt(torch.tensor(cfg.d_model, dtype=cfg.cdt, device=params["embed"].device))
-    return params["embed"].to(cfg.cdt)[tokens.long()] * scale
+    return shard_act(params["embed"].to(cfg.cdt)[tokens.long()] * scale, "dp", None, None)
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -255,7 +264,7 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: bool = True, **_):
         else:
             fn = lambda h, p=p: attn_block(p, cfg, h, positions)
         x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
-    logits = _logits(params, cfg, x)
+    logits = shard_act(_logits(params, cfg, x), "dp", None, "tp")
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 

@@ -3,8 +3,9 @@
 Counterpart of ``repro/models/layers.py``: the numerics follow the
 reference op for op (float32 inside the norms, the rotary embedding,
 the SiLU and the GELU; casts back to the compute dtype where the
-reference casts). The reference's ``_act_ff`` is a sharding pin and a
-no-op without a mesh; it comes with the mesh slice. ``new_param`` and
+reference casts). ``_act_ff`` is the reference's sharding pin on the
+MLPs' wide intermediates (:func:`~repro_torch.models.sharding.shard_act`:
+a no-op without a mesh). ``new_param`` and
 ``cross_entropy`` are the port's own: the families share them where the
 reference repeats the same lines in each.
 """
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models.sharding import shard_act
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -84,15 +87,22 @@ def sinusoidal_positions(n_pos: int, d_model: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def _act_ff(h: torch.Tensor) -> torch.Tensor:
+    """Pin wide MLP intermediates: batch over dp, feature over tp."""
+    kinds = ("dp",) + (None,) * (h.ndim - 2) + ("tp",)
+    return shard_act(h, *kinds)
+
+
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    g = x @ w_gate.to(x.dtype)
-    u = x @ w_up.to(x.dtype)
+    g = _act_ff(x @ w_gate.to(x.dtype))
+    u = _act_ff(x @ w_up.to(x.dtype))
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down.to(x.dtype)
 
 
 def gelu_mlp(x: torch.Tensor, w_in, b_in, w_out, b_out) -> torch.Tensor:
     h = x @ w_in.to(x.dtype) + b_in.to(x.dtype)
+    h = _act_ff(h)
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     return h @ w_out.to(x.dtype) + b_out.to(x.dtype)
 

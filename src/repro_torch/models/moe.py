@@ -3,8 +3,8 @@
 Counterpart of ``repro/models/moe.py``. Tokens route per sequence with
 capacity ``ceil(S * top_k * capacity_factor / n_experts)`` (at least 4,
 at most S); a (token, k) slot past its expert's capacity drops. The
-reference's ``shard_act`` pins are no-ops without a mesh and have no
-counterpart here.
+reference's ``shard_act`` pins (expert parallelism over "model") sit
+where it has them; they are no-ops without a mesh.
 
 :func:`route` is the reference's routing on given router logits, bit
 for bit: top-k takes the lower expert index first on ties (as
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.layers import swiglu
+from repro_torch.models.sharding import shard_act
 
 
 def capacity(moe: MoEConfig, seq: int) -> int:
@@ -74,7 +75,8 @@ def moe_ffn(
     slot = torch.where(keep, pos_sel, c)
     buf = x.new_zeros((b, e, c + 1, d))
     buf[rows, sel, slot] = x[:, :, None, :].expand(b, s, k, d)
-    h = swiglu_experts(buf[:, :, :c], params)                   # (B, E, C, d)
+    buf = shard_act(buf[:, :, :c], "dp", "tp", None, None)     # expert parallelism
+    h = shard_act(swiglu_experts(buf, params), "dp", "tp", None, None)   # (B, E, C, d)
 
     # ---- combine: gather back + gate-weighted sum over k
     w = (gates * keep).to(x.dtype)                              # dropped -> 0
@@ -95,7 +97,9 @@ def moe_ffn(
 def swiglu_experts(buf: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
     """buf: (B, E, C, d); expert weights (E, d, ff) / (E, ff, d)."""
     dt = buf.dtype
-    g = torch.einsum("becd,edf->becf", buf, params["w_gate"].to(dt))
-    u = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt))
+    g = shard_act(torch.einsum("becd,edf->becf", buf, params["w_gate"].to(dt)),
+                  "dp", "tp", None, None)
+    u = shard_act(torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt)),
+                  "dp", "tp", None, None)
     h = F.silu(g.float()).to(dt) * u
     return torch.einsum("becf,efd->becd", h, params["w_down"].to(dt))

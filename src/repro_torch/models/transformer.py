@@ -30,6 +30,10 @@ key and value into the clone, so the cache it was given stays valid.
 As in the reference, ``prefill`` and ``decode_step`` route with the
 capacity of their own sequence length (the prompt's, patches included;
 4 in decode), so prefill drops tokens by capacity as training does.
+
+The reference's sharding pins (``shard_act``, ``pad_heads_for_tp``) sit
+where it has them; they change nothing without an
+``activation_sharding`` mesh.
 """
 from __future__ import annotations
 
@@ -39,10 +43,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import KVCache, attention, decode_attention, write_at_
+from repro_torch.models.attention import (
+    KVCache, attention, decode_attention, pad_heads_for_tp, write_at_,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, cross_entropy, new_param, rms_norm, swiglu
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.sharding import shard_act
 from repro_torch.utils.treelib import flatten_with_names, unflatten
 
 
@@ -164,9 +171,21 @@ def _qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
+def _attend(cfg: ModelConfig, q, k, v, *, chunk_q):
+    """Causal attention of the block's heads, padded to the TP degree
+    and pinned as the reference pins them."""
+    qp, kp, vp, n_h = pad_heads_for_tp(q, k, v)
+    qp = shard_act(qp, "dp", None, "tp", None)
+    kp = shard_act(kp, "dp", None, "tp", None)
+    vp = shard_act(vp, "dp", None, "tp", None)
+    o = attention(qp, kp, vp, causal=True, window=cfg.window, chunk_q=chunk_q)
+    return shard_act(o, "dp", None, "tp", None)[:, :, :n_h]
+
+
 def _out(p, cfg: ModelConfig, o):
     b, s = o.shape[:2]
-    return o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(o.dtype)
+    out = o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(o.dtype)
+    return shard_act(out, "dp", None, None)
 
 
 def _ffn(p, cfg: ModelConfig, x):
@@ -183,7 +202,7 @@ def _block_kv(p, cfg: ModelConfig, x, positions, *, chunk_q):
     """One block: ``(x, aux, k, v)`` with its keys and values
     (B, S, H_kv, hd)."""
     q, k, v = _qkv(p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions)
-    o = attention(q, k, v, causal=True, window=cfg.window, chunk_q=chunk_q)
+    o = _attend(cfg, q, k, v, chunk_q=chunk_q)
     x, aux = _ffn(p, cfg, x + _out(p, cfg, o))
     return x, aux, k, v
 
@@ -195,9 +214,10 @@ def block(p, cfg: ModelConfig, x, positions, *, chunk_q=1024):
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, patches=None):
-    x = params["embed"].to(cfg.cdt)[tokens.long()]
+    x = shard_act(params["embed"].to(cfg.cdt)[tokens.long()], "dp", None, None)
     if patches is not None:
-        x = torch.cat([patches.to(cfg.cdt), x], dim=1)
+        pe = shard_act(patches.to(cfg.cdt), "dp", None, None)
+        x = torch.cat([pe, x], dim=1)
     return x
 
 
@@ -232,6 +252,10 @@ def forward(
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     treedef, per_layer = _layer_slices(params)
+    # sequence parallelism on the carried residual stream (the
+    # reference's rule): worth its per-layer seq re-gathers only for wide
+    # models
+    sp_axis = "tp" if cfg.d_model >= 4096 else None
 
     def body(h, *lp):
         return block(unflatten(treedef, list(lp)), cfg, h, positions, chunk_q=chunk_q)
@@ -242,9 +266,10 @@ def forward(
             x, a = checkpoint(body, x, *lp, use_reentrant=False)
         else:
             x, a = body(x, *lp)
+        x = shard_act(x, "dp", sp_axis, None)
         if a is not None:
             aux = aux + a
-    return _logits(params, cfg, x), aux
+    return shard_act(_logits(params, cfg, x), "dp", None, "tp"), aux
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -310,8 +335,10 @@ def prefill(
     cache = init_cache(cfg, b, s_max, device=x.device)
     for layer, p in enumerate(_layers(params)):
         x, _, k, v = _block_kv(p, cfg, x, positions, chunk_q=chunk_q)
-        cache.k[layer, :, :s] = k
-        cache.v[layer, :, :s] = v
+        x = shard_act(x, "dp", "tp", None)
+        # cache layout matches decode cache_specs: head_dim over "model"
+        cache.k[layer, :, :s] = shard_act(k.to(cfg.cdt), "dp", None, None, "tp")
+        cache.v[layer, :, :s] = shard_act(v.to(cfg.cdt), "dp", None, None, "tp")
     logits = _logits(params, cfg, x[:, -1])
     return cache._replace(pos=torch.tensor(s, dtype=torch.int32, device=x.device)), logits
 

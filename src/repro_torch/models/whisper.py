@@ -25,8 +25,9 @@ encoder's memory by :func:`init_cache`, and ``pos``. ``decode_step``
 attends to every memory key (``decode_attention`` with ``pos`` =
 enc_seq), writes the new self K/V into clones and returns a new cache
 that shares the static cross K/V; the given cache stays valid, and a
-step reads nothing back to the host. ``pad_heads_for_tp`` and
-``shard_act`` are no-ops without a mesh and come with the mesh slice.
+step reads nothing back to the host. ``pad_heads_for_tp`` (12 heads
+pad to 16 under 16-way TP) and the ``shard_act`` pins sit where the
+reference has them; they are no-ops without a mesh.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import KVCache, attention, decode_attention, write_at_
+from repro_torch.models.attention import (
+    KVCache, attention, decode_attention, pad_heads_for_tp, write_at_,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     cross_entropy,
@@ -46,6 +49,7 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     sinusoidal_positions_at,
 )
+from repro_torch.models.sharding import shard_act
 from repro_torch.models.transformer import _layer_slices, _layers
 from repro_torch.utils.treelib import unflatten
 
@@ -168,7 +172,9 @@ def _mha(p, cfg: ModelConfig, xq, xkv, *, causal: bool, chunk_q=1024):
     """Attention of ``xq`` over ``xkv``: (output (B, Sq, d), k, v), k and
     v (B, Skv, H_kv, hd) in the compute dtype."""
     k, v = _kv(p, cfg, xkv)
-    o = attention(_q(p, cfg, xq), k, v, causal=causal, chunk_q=chunk_q)
+    qp, kp, vp, n_h = pad_heads_for_tp(_q(p, cfg, xq), k, v)
+    qp = shard_act(qp, "dp", None, "tp", None)
+    o = attention(qp, kp, vp, causal=causal, chunk_q=chunk_q)[:, :, :n_h]
     return _out(p, cfg, o), k, v
 
 
@@ -317,7 +323,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, frames=None, s_max: Optional[in
     cache = init_cache(params, cfg, memory, b, s_max)
     for layer, lp in enumerate(_layers(params, "dec_layers")):
         x, k, v = _dec_block_kv(lp, cfg, x, memory)
-        cache.k[layer, :, :s] = k
-        cache.v[layer, :, :s] = v
+        cache.k[layer, :, :s] = shard_act(k.to(cfg.cdt), "dp", None, None, "tp")
+        cache.v[layer, :, :s] = shard_act(v.to(cfg.cdt), "dp", None, None, "tp")
     logits = _logits(params, cfg, x[:, -1])
     return cache._replace(pos=torch.tensor(s, dtype=torch.int32, device=x.device)), logits

@@ -18,8 +18,8 @@ Layer kinds alternate per ``cfg.block_pattern``; the parameters'
 ``blocks`` is a list of per-layer dicts (kinds differ), not stacks over
 layers, so :meth:`XLSTM.state_tree` is the reference's ``init_params``
 tree with the same names, shapes and dtypes. The reference's
-``shard_act`` pins are no-ops without a mesh and come with the mesh
-slice (ROADMAP Queue 1 item 7). The decode state is a dict
+``shard_act`` pins sit where it has them (no-ops without a mesh; the
+mLSTM's queries shard their sequence over "model"). The decode state is a dict
 ``{"layers": [per-layer dicts], "pos": () int32}`` whose shapes depend
 only on the config; ``decode_step`` returns a new one and leaves the
 given state unchanged, as the reference's does.
@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cross_entropy, new_param, rms_norm
+from repro_torch.models.sharding import shard_act
 
 NEG = -1e30   # the reference's guard for all -inf rows and its initial m
 
@@ -161,12 +162,14 @@ def _mlstm_qkv(p, cfg: ModelConfig, x):
     dt = x.dtype
     h = cfg.n_heads
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    xm = xn @ p["w_up"].to(dt)
-    z = xn @ p["w_z"].to(dt)
+    xm = shard_act(xn @ p["w_up"].to(dt), "dp", None, "tp")
+    z = shard_act(xn @ p["w_z"].to(dt), "dp", None, "tp")
     xc = F.silu(_conv_causal(xm, p["conv_w"], p["conv_b"]).float()).to(dt)
     b, s, di = xm.shape
     hd = di // h
-    q = (xc @ p["wq"].to(dt)).reshape(b, s, h, hd)
+    # sequence-parallel mLSTM: queries shard over "tp"; k/v stay
+    # batch-sharded and are broadcast
+    q = shard_act((xc @ p["wq"].to(dt)).reshape(b, s, h, hd), "dp", "tp", None, None)
     k = (xc @ p["wk"].to(dt)).reshape(b, s, h, hd)
     v = (xm @ p["wv"].to(dt)).reshape(b, s, h, hd)
     logi = xc @ p["w_i"].to(dt) + p["b_i"].to(dt)
@@ -178,8 +181,8 @@ def _mlstm_out(p, cfg: ModelConfig, x, hout, z):
     # each head's output RMS-normed over hd: the reference's _headnorm
     hout = rms_norm(hout, p["gn"], cfg.norm_eps)
     b, s = x.shape[0], x.shape[1]
-    flat = hout.reshape(b, s, -1) * F.silu(z.float()).to(x.dtype)
-    return x + flat @ p["w_down"].to(x.dtype)
+    flat = shard_act(hout.reshape(b, s, -1) * F.silu(z.float()).to(x.dtype), "dp", None, "tp")
+    return shard_act(x + flat @ p["w_down"].to(x.dtype), "dp", None, None)
 
 
 def mlstm_block(p, cfg: ModelConfig, x):
@@ -456,7 +459,8 @@ def _slstm_scan(p, cfg: ModelConfig, x):
     h = cfg.n_heads
     hd = d // h
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    wx = (xn @ p["w"].to(x.dtype)).reshape(b, s, h, 4 * hd).float().permute(1, 2, 0, 3)
+    wx = shard_act(xn @ p["w"].to(x.dtype), "dp", None, "tp")
+    wx = wx.reshape(b, s, h, 4 * hd).float().permute(1, 2, 0, 3)
     r, bias = _slstm_operands(p, cfg)
     st = slstm_state(cfg, b, device=x.device)
     carry = (st[k].transpose(0, 1).contiguous() for k in ("h", "c", "n", "m"))
@@ -472,7 +476,7 @@ def _slstm_scan(p, cfg: ModelConfig, x):
 def _slstm_out(p, cfg: ModelConfig, x, ys):
     b, s, d = x.shape
     ys = rms_norm(ys.to(x.dtype), p["gn"], cfg.norm_eps)
-    return x + ys.reshape(b, s, d) @ p["w_down"].to(x.dtype)
+    return shard_act(x + ys.reshape(b, s, d) @ p["w_down"].to(x.dtype), "dp", None, None)
 
 
 def slstm_block(p, cfg: ModelConfig, x):
@@ -554,7 +558,7 @@ def _blocks(cfg: ModelConfig, params):
 
 def forward(params, cfg: ModelConfig, tokens, *, remat: bool = True, **_):
     """-> (logits (B, S, V), a zero aux loss () float32)."""
-    x = params["embed"].to(cfg.cdt)[tokens.long()]
+    x = shard_act(params["embed"].to(cfg.cdt)[tokens.long()], "dp", None, None)
     for kind, p in _blocks(cfg, params):
         fn = mlstm_block if kind == "mlstm" else slstm_block
         if remat:
@@ -562,7 +566,7 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: bool = True, **_):
         else:
             x = fn(p, cfg, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["out"].to(cfg.cdt).T
+    logits = shard_act(x @ params["out"].to(cfg.cdt).T, "dp", None, "tp")
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -624,7 +628,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, s_max: Optional[int] = None, **
     """Parallel prefill: the forward pass with the closed-form final
     recurrent state of each mLSTM and the time loop's final carry of
     each sLSTM -> (state, logits of the last token (B, V))."""
-    x = params["embed"].to(cfg.cdt)[tokens.long()]
+    x = shard_act(params["embed"].to(cfg.cdt)[tokens.long()], "dp", None, None)
     states: List[Dict[str, torch.Tensor]] = []
     for kind, p in _blocks(cfg, params):
         fn = mlstm_block_with_state if kind == "mlstm" else slstm_block_with_state

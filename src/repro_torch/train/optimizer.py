@@ -71,13 +71,16 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(
-    grads: Any, opt_state: Dict[str, Any], params: Any, cfg: OptConfig
+    grads: Any, opt_state: Dict[str, Any], params: Any, cfg: OptConfig,
+    grad_norm: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """One AdamW step, in place on ``params`` and ``opt_state``.
-    Returns ``{"grad_norm", "lr"}`` (0-d float32 tensors)."""
+    Returns ``{"grad_norm", "lr"}`` (0-d float32 tensors). ``grad_norm``
+    is the clip's global norm when ``grads`` are shards of the whole
+    gradients (default: the norm of ``grads``)."""
     count = opt_state["count"] + 1
     cf = count.float()
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.full_like(gnorm, cfg.grad_clip)
     # tensor / tensor: a true division on every device
     scale = torch.where(

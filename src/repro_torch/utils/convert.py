@@ -7,7 +7,8 @@ turns such a tree into torch tensors on a device, and
 bfloat16 of its own, so bf16 moves through a 16-bit storage view: the
 NumPy side names it ``bfloat16`` (the dtype that ``ml_dtypes``
 registers), the torch side ``torch.bfloat16``. Structure and leaf order
-are kept (see :mod:`repro_torch.utils.treelib`).
+are kept (see :mod:`repro_torch.utils.treelib`). A DTensor leaf (a
+state placed on a mesh) is read as its whole tensor (:func:`whole_tensor`).
 
 :func:`params_from_numpy` and :func:`train_state_from_numpy` load a JAX
 parameter or train-state tree into the port's model module of the
@@ -24,6 +25,7 @@ lists of dicts and a ``pos``).
 """
 from __future__ import annotations
 
+import sys
 from typing import Any
 
 import numpy as np
@@ -42,6 +44,19 @@ def _numpy_bfloat16() -> np.dtype:
         ) from e
 
 
+def whole_tensor(x: Any) -> Any:
+    """A DTensor's whole tensor: its local tensor (no copy) on a mesh of
+    one device, else ``full_tensor()``, a collective that every rank of
+    the mesh calls. Anything else is returned as it is."""
+    # no DTensor exists before its module is imported (which takes a
+    # second): a plain state never pays for it
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is None or not isinstance(x, dtensor.DTensor):
+        return x
+    with torch.no_grad():
+        return x.to_local() if x.device_mesh.size() == 1 else x.full_tensor()
+
+
 def _from_numpy(x: Any, device: torch.device) -> torch.Tensor:
     a = np.array(x, copy=True, order="C")
     if a.dtype.name == "bfloat16":
@@ -52,7 +67,7 @@ def _from_numpy(x: Any, device: torch.device) -> torch.Tensor:
 def _to_numpy(t: Any) -> np.ndarray:
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
-    t = t.detach().cpu().contiguous()
+    t = whole_tensor(t).detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().copy().view(_numpy_bfloat16())
     return t.numpy().copy()

@@ -298,6 +298,35 @@ def test_train_runs_on_the_card_are_bit_equal(cuda, compute):
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_mesh_runs_on_the_card_are_build_train_step(cuda, compute):
+    """Three steps through ``make_train_step`` on ``make_host_mesh("cuda")``
+    (a 1x1 mesh on an nccl group of world size 1) and through
+    ``build_train_step``, each from the same state under deterministic
+    algorithms: the same losses and the same bits."""
+    import torch.distributed as dist
+
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import run
+    from repro_torch.utils.convert import tree_to_numpy
+
+    cfg, _, tcfg = _smoke(compute)
+    data_cfg = DataConfig(vocab_size=256, seq_len=64, global_batch=4)
+    a = run(cfg, data_cfg, tcfg, None, steps=3, ckpt_every=0, device="cuda", log=lambda _: None)
+    mesh = make_host_mesh("cuda")
+    try:
+        assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+        b = run(cfg, data_cfg, tcfg, None, steps=3, ckpt_every=0, device="cuda",
+                log=lambda _: None, mesh=mesh)
+        assert a.losses == b.losses
+        for (n, x), (_, y) in zip(flatten_with_names(tree_to_numpy(a.state))[0],
+                                  flatten_with_names(tree_to_numpy(b.state))[0]):
+            assert x.tobytes() == y.tobytes(), n
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_moe_forward_backward_on_the_card_is_bit_equal(cuda, compute):
     """The MoE smoke model's loss and gradients, twice under deterministic
     algorithms on a batch whose routing drops slots: the same bits (the

@@ -2,7 +2,10 @@
 
 Against the JAX reference on the CPU: ``lr_at``, ``adamw_update`` and
 full train steps (``jax.jit(build_train_step(...))`` with no mesh, on
-the reference's own batches, fed to the port as NumPy arrays). Then the
+the reference's own batches, fed to the port as NumPy arrays; the port
+steps through ``make_train_step`` on a 1x1 gloo mesh, as the reference's
+launcher does, since the reference's own ``make_train_step`` does not
+run under jax 0.9). Then the
 port's own invariants (ports of ``tests/test_train.py`` and
 ``tests/test_launcher.py``): the loss decreases, the pipeline replays,
 save -> restore -> continue is bit-exact with and without the device
@@ -22,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import repro.core as R
 from repro.configs import get_smoke_config as ref_smoke_config
@@ -37,8 +41,10 @@ from repro.train import lr_at as ref_lr_at
 import repro_torch.core as T
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import DataConfig, SyntheticTokens
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.train import deterministic_algorithms, run
 from repro_torch.models import get_model
+from repro_torch.models.sharding import place
 from repro_torch.train import (
     OptConfig,
     TrainConfig,
@@ -46,6 +52,7 @@ from repro_torch.train import (
     build_train_step,
     init_train_state,
     lr_at,
+    make_train_step,
 )
 from repro_torch.utils.convert import copy_tree_, train_state_from_numpy, tree_to_numpy
 from repro_torch.utils.treelib import flatten_with_names
@@ -88,6 +95,15 @@ def assert_states_equal(a, b):
 
 def torch_batch(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+@pytest.fixture
+def host_mesh():
+    """``make_host_mesh("cpu")``: a 1x1 mesh on a gloo group of this
+    process, destroyed after the test."""
+    mesh = make_host_mesh("cpu")
+    yield mesh
+    dist.destroy_process_group()
 
 
 # -- schedule and optimizer ------------------------------------------------
@@ -157,7 +173,7 @@ def ref_steps():
 
 
 @pytest.mark.parametrize("arch", DENSE + MOE_VLM)
-def test_train_steps_match_reference(arch, ref_steps):
+def test_train_steps_match_reference(arch, ref_steps, host_mesh):
     """Three steps on the reference's batches (lr 5e-3, then 1e-2).
 
     Each step starts from the reference's state before it and is held to
@@ -175,10 +191,11 @@ def test_train_steps_match_reference(arch, ref_steps):
     ref = ref_steps[arch]
     model = get_model(get_smoke_config(arch))
     tcfg = TrainConfig(opt=OptConfig(lr=1e-2, warmup_steps=2, total_steps=10))
-    step = build_train_step(model, tcfg)
-    free = train_state_from_numpy(ref["states"][0], model, "cpu")
+    step, specs, _ = make_train_step(model, tcfg, host_mesh, torch_batch(ref["batches"][0]))
+    placed = lambda tree: place(train_state_from_numpy(tree, model, "cpu"), host_mesh, specs)
+    free = placed(ref["states"][0])
     for i in range(3):
-        state = train_state_from_numpy(ref["states"][i], model, "cpu")
+        state = placed(ref["states"][i])
         state, m = step(state, torch_batch(ref["batches"][i]))
         want = ref["metrics"][i]
         for k in ("loss", "grad_norm", "lr"):
@@ -202,17 +219,20 @@ def test_train_steps_match_reference(arch, ref_steps):
         assert float(fm["loss"]) == pytest.approx(want["loss"], rel=1e-5), i
 
 
-def test_grad_accumulation_equivalence():
+def test_grad_accumulation_equivalence(host_mesh):
     """microbatches=2 equals microbatches=1 (port of the reference's
-    test, same tolerances)."""
+    test, same tolerances), through ``make_train_step`` on
+    ``make_host_mesh("cpu")`` as the reference's runs."""
     model = get_model(get_smoke_config("tinyllama-1.1b"))
     batch = SyntheticTokens(DataConfig(vocab_size=256, seq_len=32, global_batch=8),
                             device="cpu").next()
     out = {}
     for k in (1, 2):
         tcfg = TrainConfig(opt=OptConfig(lr=1e-3), microbatches=k)
-        state = init_train_state(model, torch.Generator().manual_seed(1), tcfg, "cpu")
-        state, m = build_train_step(model, tcfg)(state, batch)
+        fn, specs, _ = make_train_step(model, tcfg, host_mesh, batch)
+        state = place(init_train_state(model, torch.Generator().manual_seed(1), tcfg, "cpu"),
+                      host_mesh, specs)
+        state, m = fn(state, batch)
         out[k] = (float(m["loss"]), tree_to_numpy(state["params"]))
     assert out[1][0] == pytest.approx(out[2][0], rel=1e-5)
     for (n, a), (_, b) in zip(named(out[1][1]), named(out[2][1])):
@@ -396,7 +416,8 @@ def test_entry_points_default_to_cuda():
 
 
 def test_cli_train_and_resume(tmp_path):
-    """Train 6 steps, then resume to 9 (port of the reference's test)."""
+    """Train 6 steps, then resume to 9 (port of the reference's test),
+    on the 1x1 host mesh that ``main`` makes."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     common = ["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
               "--global-batch", "4", "--seq-len", "32", "--ckpt-every", "3",
