@@ -148,7 +148,8 @@ from repro_torch.core.storage import (
 from repro_torch.core.strategies import make_plan
 from repro_torch.core.integrity import crc32
 from repro_torch.kernels.common import resolve_device
-from repro_torch.utils.treelib import flatten_with_names, tree_map, unflatten
+from repro_torch.utils import telemetry
+from repro_torch.utils.treelib import flatten_with_names, tree_leaves, tree_map, unflatten
 
 log = logging.getLogger("repro_torch.ckpt")
 
@@ -525,96 +526,98 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
 
     def save(self, step: int, state: Any) -> SaveStats:
+        with telemetry.span("save", step=step):
+            return self._save(step, state)
+
+    def _save(self, step: int, state: Any) -> SaveStats:
         cfg = self.cfg
-        t0 = time.perf_counter()
-        if cfg.precodec not in ("none", "int8"):
-            raise ValueError(f"unknown precodec {cfg.precodec!r}")
-        base = None
-        if cfg.device_precodec:
-            self._check_device_cfg()
-        else:
-            if cfg.precodec == "int8":
-                from repro_torch.core.precodec import quantize_tree
+        with telemetry.Timer("save.encode", step=step) as encode:
+            if cfg.precodec not in ("none", "int8"):
+                raise ValueError(f"unknown precodec {cfg.precodec!r}")
+            base = None
+            if cfg.device_precodec:
+                self._check_device_cfg()
+            else:
+                if cfg.precodec == "int8":
+                    from repro_torch.core.precodec import quantize_tree
 
-                state = quantize_tree(state)
-            base = self._delta_base()
-        c = self.cluster
-        pool = self._local_pool() if cfg.parallel_local else None
-        replicate = cfg.partner_replication and c.n_nodes > 1
-        # L1 backpressure: make room for this step *before* its first
-        # blob lands (the fused path writes L1 inside encode).  The
-        # newest step's cost is the estimate; the post-write true-up
-        # below reconciles against the real size.
-        self._enforce_l1_budget(step, self._last_l1_cost, strict=True)
+                    state = quantize_tree(state)
+                base = self._delta_base()
+            c = self.cluster
+            pool = self._local_pool() if cfg.parallel_local else None
+            replicate = cfg.partner_replication and c.n_nodes > 1
+            # L1 backpressure: make room for this step *before* its first
+            # blob lands (the fused path writes L1 inside encode).  The
+            # newest step's cost is the estimate; the post-write true-up
+            # below reconciles against the real size.
+            self._enforce_l1_budget(step, self._last_l1_cost, strict=True)
 
-        def drain_rank(rank: int, blob: Any) -> None:
-            # non-atomic, unsynced writes: the local manifest written
-            # after the batch is the commit point, sync_dir the
-            # durability point
-            node = c.node_of_rank(rank)
-            self.local.write_blob(
-                node, step, rank, blob, sync=False, atomic=False
-            )
-            if replicate:
-                partner = (node + 1) % c.n_nodes
+            def drain_rank(rank: int, blob: Any) -> None:
+                # non-atomic, unsynced writes: the local manifest written
+                # after the batch is the commit point, sync_dir the
+                # durability point
+                node = c.node_of_rank(rank)
                 self.local.write_blob(
-                    partner, step, rank, blob, partner=True,
-                    sync=False, atomic=False,
+                    node, step, rank, blob, sync=False, atomic=False
                 )
+                if replicate:
+                    partner = (node + 1) % c.n_nodes
+                    self.local.write_blob(
+                        partner, step, rank, blob, partner=True,
+                        sync=False, atomic=False,
+                    )
 
-        fused = cfg.zero_copy and pool is not None
-        stage_s = stage_wait_s = 0.0
-        if cfg.device_precodec:
-            enc, stage_s, stage_wait_s = self._encode_device(
-                step, state, pool, drain_rank if fused else None
-            )
-        elif cfg.zero_copy:
-            # fused parallel local phase: each pooled rank task encodes,
-            # CRCs and writes its L1 blob (+ partner replica) in one go —
-            # CRC of one rank overlaps the file write of another
-            enc = encode_state(
-                step, state, self.cluster, codec=cfg.codec, base=base,
-                chunk_aligned=cfg.chunk_aligned_split,
-                pool=pool, rank_sink=drain_rank if fused else None,
-                chunk_size=cfg.chunk_size,
-            )
-        else:
-            from repro_torch.core.serialize_ref import encode_state_reference
+            fused = cfg.zero_copy and pool is not None
+            stage_s = stage_wait_s = 0.0
+            if cfg.device_precodec:
+                enc, stage_s, stage_wait_s = self._encode_device(
+                    step, state, pool, drain_rank if fused else None
+                )
+            elif cfg.zero_copy:
+                # fused parallel local phase: each pooled rank task encodes,
+                # CRCs and writes its L1 blob (+ partner replica) in one go —
+                # CRC of one rank overlaps the file write of another
+                enc = encode_state(
+                    step, state, self.cluster, codec=cfg.codec, base=base,
+                    chunk_aligned=cfg.chunk_aligned_split,
+                    pool=pool, rank_sink=drain_rank if fused else None,
+                    chunk_size=cfg.chunk_size,
+                )
+            else:
+                from repro_torch.core.serialize_ref import encode_state_reference
 
-            enc = encode_state_reference(
-                step, state, self.cluster, codec=cfg.codec, base=base
-            )
-        enc.manifest.precodec = cfg.precodec
-        t_enc = time.perf_counter() - t0
+                enc = encode_state_reference(
+                    step, state, self.cluster, codec=cfg.codec, base=base
+                )
+            enc.manifest.precodec = cfg.precodec
 
         # ---- local phase (blocking) ----
-        t1 = time.perf_counter()
-        if pool is None:
-            # seed reference path: sequential writes, fsync per file
-            for rank, blob in enumerate(enc.blobs):
-                node = c.node_of_rank(rank)
-                self.local.write_blob(node, step, rank, blob)
-                if cfg.partner_replication and c.n_nodes > 1:
-                    partner = (node + 1) % c.n_nodes
-                    self.local.write_blob(partner, step, rank, blob, partner=True)
-        else:
-            if not fused:  # reference encode + parallel drain
-                list(pool.map(lambda j: drain_rank(*j), enumerate(enc.blobs)))
-            # batched durability: one fsync per node directory (the
-            # blobs span every rank, hence every node — replicas too)
-            list(pool.map(
-                lambda n: self.local.sync_dir(n, step), range(c.n_nodes)
-            ))
-        enc.manifest.status = "local_done"
-        self._write_manifest_local(enc.manifest)
-        t_local = time.perf_counter() - t1
+        with telemetry.Timer("save.l1_sync", step=step) as l1_sync:
+            if pool is None:
+                # seed reference path: sequential writes, fsync per file
+                for rank, blob in enumerate(enc.blobs):
+                    node = c.node_of_rank(rank)
+                    self.local.write_blob(node, step, rank, blob)
+                    if cfg.partner_replication and c.n_nodes > 1:
+                        partner = (node + 1) % c.n_nodes
+                        self.local.write_blob(partner, step, rank, blob, partner=True)
+            else:
+                if not fused:  # reference encode + parallel drain
+                    list(pool.map(lambda j: drain_rank(*j), enumerate(enc.blobs)))
+                # batched durability: one fsync per node directory (the
+                # blobs span every rank, hence every node — replicas too)
+                list(pool.map(
+                    lambda n: self.local.sync_dir(n, step), range(c.n_nodes)
+                ))
+            enc.manifest.status = "local_done"
+            self._write_manifest_local(enc.manifest)
 
         st = SaveStats(
             step=step,
-            local_time=t_local,
+            local_time=l1_sync.seconds,
             raw_bytes=enc.manifest.total_raw_bytes,
             stored_bytes=sum(r.stored_size for r in enc.manifest.ranks),
-            encode_time=t_enc,
+            encode_time=encode.seconds,
             stage_s=stage_s,
             stage_wait_s=stage_wait_s,
         )
@@ -746,13 +749,14 @@ class CheckpointManager:
         """
         if not self.cfg.device_precodec:
             return False
-        self._check_device_cfg()
-        base = self._delta_base()
-        staged = self._device_codec().stage(
-            step, state, base_step=None if base is None else base.step
-        )
-        with self._lock:
-            self._staged = staged
+        with telemetry.span("stage", step=step):
+            self._check_device_cfg()
+            base = self._delta_base()
+            staged = self._device_codec().stage(
+                step, state, base_step=None if base is None else base.step
+            )
+            with self._lock:
+                self._staged = staged
         return True
 
     def _encode_device(self, step: int, state: Any, pool, rank_sink):
@@ -1379,6 +1383,10 @@ class CheckpointManager:
                  " (parked; superseded)" if parked else "")
 
     def _do_flush(self, job: _FlushJob) -> FlushResult:
+        with telemetry.span("flush", step=job.enc.step):
+            return self._flush(job)
+
+    def _flush(self, job: _FlushJob) -> FlushResult:
         enc, plan = job.enc, job.plan
         man = enc.manifest
         man.strategy = plan.strategy
@@ -1725,31 +1733,39 @@ class CheckpointManager:
             candidates = sorted(
                 set(self.steps("pfs")) | set(self.steps("local")), reverse=True
             )
+        with telemetry.span("restore", step=step):
+            return self._restore(candidates, target, sharding_fn)
+
+    def _restore(self, candidates: List[int], target: Any, sharding_fn) -> Tuple[int, Any]:
         errors: List[str] = []
         for s in candidates:
             with self._lock:
                 l0 = self._l0
             if l0 is not None and l0.step == s:
-                tgt = self._decode_target(l0.manifest, target)
-                tree = deserialize_tree(l0.stream, l0.manifest.leaves, tgt)
-                tree = self._maybe_dequant(l0.manifest, tree, target)
-                return s, self._place(tree, sharding_fn)
+                with telemetry.span("restore.decode", step=s):
+                    tgt = self._decode_target(l0.manifest, target)
+                    tree = deserialize_tree(l0.stream, l0.manifest.leaves, tgt)
+                    tree = self._maybe_dequant(l0.manifest, tree, target)
+                return s, self._place(tree, sharding_fn, s)
             for loader in (self._restore_from_pfs, self._restore_from_local):
                 try:
                     tree = loader(s, target)
-                    return s, self._place(tree, sharding_fn)
+                    return s, self._place(tree, sharding_fn, s)
                 except Exception as e:
                     errors.append(f"step {s} via {loader.__name__}: {e!r}")
         raise FileNotFoundError(
             "no restorable checkpoint found; attempts: " + "; ".join(errors[:8])
         )
 
-    def _place(self, tree: Any, sharding_fn) -> Any:
-        if sharding_fn is None:
-            return tree_map(lambda t: t.to(self.device), tree)
-        named, treedef = flatten_with_names(tree)
-        placed = [sharding_fn(name, leaf) for name, leaf in named]
-        return unflatten(treedef, placed)
+    def _place(self, tree: Any, sharding_fn, step: Optional[int] = None) -> Any:
+        if telemetry.enabled():
+            telemetry.count("restore.h2d_bytes", sum(t.nbytes for t in tree_leaves(tree)))
+        with telemetry.span("restore.place", step=step):
+            if sharding_fn is None:
+                return tree_map(lambda t: t.to(self.device), tree)
+            named, treedef = flatten_with_names(tree)
+            placed = [sharding_fn(name, leaf) for name, leaf in named]
+            return unflatten(treedef, placed)
 
     # -- level loaders ----
 
@@ -1928,9 +1944,11 @@ class CheckpointManager:
                 if crc32(buf) != expected[i]:
                     bad.append(int(sel[i]))  # list.append is atomic
 
-        bufs, res = self.executor.execute_read_plan(
-            rp, step, on_request=on_request, hedge=self._hedge_policy(man, step)
-        )
+        # the scrub's reads (record=False) are no restore's
+        with telemetry.span("restore.read", step=step) if record else telemetry.NOOP:
+            bufs, res = self.executor.execute_read_plan(
+                rp, step, on_request=on_request, hedge=self._hedge_policy(man, step)
+            )
         if record:  # the scrub passes False so restore telemetry survives
             self.last_read_result = res
         if bad:
@@ -1967,28 +1985,33 @@ class CheckpointManager:
         verify = self.cfg.verify_on_restore
         by_rank = self._read_blobs_pfs(man, step, verify=verify)
         blobs = [by_rank[r] for r in range(man.world_size)]
-        base_stream = (
-            self._load_stream(man.base_step) if man.base_step is not None else None
-        )
-        tree = decode_state(
-            man, blobs, self._decode_target(man, target), base_stream=base_stream,
-            verify=False,  # arrival hook above already CRC-checked each blob
-            pool=self._decode_pool(),
-        )
-        return self._maybe_dequant(man, tree, target)
+        base_stream = self._base_stream(man)
+        with telemetry.span("restore.decode", step=step):
+            tree = decode_state(
+                man, blobs, self._decode_target(man, target), base_stream=base_stream,
+                verify=False,  # arrival hook above already CRC-checked each blob
+                pool=self._decode_pool(),
+            )
+            return self._maybe_dequant(man, tree, target)
 
     def _restore_from_local(self, step: int, target: Any) -> Any:
         man = self._manifest_local(step)
         self._check_delta_base(man)
         blobs = self._local_blobs(man, step)
-        base_stream = (
-            self._load_stream(man.base_step) if man.base_step is not None else None
-        )
-        tree = decode_state(
-            man, blobs, self._decode_target(man, target), base_stream=base_stream,
-            verify=self.cfg.verify_on_restore, pool=self._decode_pool(),
-        )
-        return self._maybe_dequant(man, tree, target)
+        base_stream = self._base_stream(man)
+        with telemetry.span("restore.decode", step=step):
+            tree = decode_state(
+                man, blobs, self._decode_target(man, target), base_stream=base_stream,
+                verify=self.cfg.verify_on_restore, pool=self._decode_pool(),
+            )
+            return self._maybe_dequant(man, tree, target)
+
+    def _base_stream(self, man: Manifest) -> Optional[Buffer]:
+        """The raw stream of a delta's base step, or ``None`` (anchor)."""
+        if man.base_step is None:
+            return None
+        with telemetry.span("restore.base", step=man.base_step):
+            return self._load_stream(man.base_step)
 
     def _local_location(
         self, man: Manifest, step: int, rank: int

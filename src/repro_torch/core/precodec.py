@@ -36,7 +36,6 @@ import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass
-from time import perf_counter
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -58,6 +57,7 @@ from repro_torch.kernels.quantize.ops import (
     quantize,
     quantize_blocks_needed,
 )
+from repro_torch.utils import telemetry
 from repro_torch.utils.convert import whole_tensor
 from repro_torch.utils.treelib import flatten_with_names, tree_leaves, tree_map, unflatten
 
@@ -413,50 +413,51 @@ class DevicePrecodec:
         step: int,
         base_step: Optional[int],
     ) -> _StageResult:
-        t0 = perf_counter()
-        side = self._side
-        with torch.cuda.stream(side) if side is not None else nullcontext():
-            if side is not None:
-                side.wait_event(ready)
-                # allocated on the caller's stream, used (and later freed
-                # as the base) on this one
-                words.record_stream(side)
-            use_base = (
-                base_step is not None
-                and self._base_step == base_step
-                and self._base_words is not None
-                and self._base_words.shape == words.shape
-            )
-            basew = self._base_words if use_base else torch.zeros_like(words)
-            delta, meta = fused_precodec(
-                words, basew, chunk_words=self.chunk_size // 4
-            )
-            meta_np = meta_to_numpy(meta)
-            digests = digests_from_meta(meta_np)
-            n_chunks = len(digests)
-            # no base: the XOR against zeros IS the stream; every chunk ships
-            mask = dirty_from_meta(meta_np) if use_base else np.ones(n_chunks, bool)
-            dirty_idx = np.flatnonzero(mask)
-            sub = (
-                delta
-                if len(dirty_idx) == n_chunks
-                else delta.index_select(
-                    0, torch.as_tensor(dirty_idx, device=delta.device)
+        with telemetry.Timer("stage.device_pass", step=step) as device_pass:
+            side = self._side
+            with torch.cuda.stream(side) if side is not None else nullcontext():
+                if side is not None:
+                    side.wait_event(ready)
+                    # allocated on the caller's stream, used (and later freed
+                    # as the base) on this one
+                    words.record_stream(side)
+                use_base = (
+                    base_step is not None
+                    and self._base_step == base_step
+                    and self._base_words is not None
+                    and self._base_words.shape == words.shape
                 )
-            )
-            done = None
-            if side is None:
-                host = sub
-            else:
-                host = torch.empty(sub.shape, dtype=sub.dtype, pin_memory=True)
-                host.copy_(sub, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(side)
-        self._base_words, self._base_step = words, step
+                basew = self._base_words if use_base else torch.zeros_like(words)
+                delta, meta = fused_precodec(
+                    words, basew, chunk_words=self.chunk_size // 4
+                )
+                meta_np = meta_to_numpy(meta)
+                digests = digests_from_meta(meta_np)
+                n_chunks = len(digests)
+                # no base: the XOR against zeros IS the stream; every chunk ships
+                mask = dirty_from_meta(meta_np) if use_base else np.ones(n_chunks, bool)
+                dirty_idx = np.flatnonzero(mask)
+                sub = (
+                    delta
+                    if len(dirty_idx) == n_chunks
+                    else delta.index_select(
+                        0, torch.as_tensor(dirty_idx, device=delta.device)
+                    )
+                )
+                done = None
+                if side is None:
+                    host = sub
+                else:
+                    host = torch.empty(sub.shape, dtype=sub.dtype, pin_memory=True)
+                    host.copy_(sub, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(side)
+            self._base_words, self._base_step = words, step
+            telemetry.count("stage.dirty_chunks", len(dirty_idx))
         return _StageResult(
             base_step=base_step if use_base else None,
             mask=mask, digests=digests, dirty_idx=dirty_idx,
-            host=host, done=done, stage_s=perf_counter() - t0,
+            host=host, done=done, stage_s=device_pass.seconds,
         )
 
     def consume(
@@ -469,12 +470,11 @@ class DevicePrecodec:
         is rebuilt as a copy of the base with the dirty chunks XORed in
         place — no full-state D2H ever happens for a delta step.
         """
-        t0 = perf_counter()
-        res = staged.future.result()
-        if res.done is not None:
-            res.done.synchronize()
-        dirty_np = res.host.numpy().view(np.uint32)
-        wait_s = perf_counter() - t0
+        with telemetry.Timer("save.wait_staged", step=staged.step) as wait:
+            res = staged.future.result()
+            if res.done is not None:
+                res.done.synchronize()
+            dirty_np = res.host.numpy().view(np.uint32)
         total, cs = staged.spec.total, self.chunk_size
         deltas: Dict[int, np.ndarray] = {}
         if res.base_step is None:
@@ -499,7 +499,7 @@ class DevicePrecodec:
             digests=res.digests,
             base_step=res.base_step,
             stage_s=res.stage_s,
-            wait_s=wait_s,
+            wait_s=wait.seconds,
         )
 
     def invalidate_base(self) -> None:

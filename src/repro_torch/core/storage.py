@@ -92,6 +92,7 @@ from repro_torch.core.plan import (
 )
 from repro_torch.core.faults import FaultPlan, inject_write
 from repro_torch.core.serialize import Manifest, Placement
+from repro_torch.utils import telemetry
 
 
 class FlushCancelled(Exception):
@@ -1331,7 +1332,30 @@ class RealExecutor:
         through the persistent pool, fsync on success.  ``ftruncate``
         to an unchanged size preserves existing contents, so re-opening
         a partially flushed step never clobbers resumed extents."""
-        t0 = time.perf_counter()
+        with telemetry.Timer() as clock:
+            fields = self._write_columns(
+                files, names, w, homes, step,
+                workers=workers, barrier_per_round=barrier_per_round,
+                cancel=cancel, limiter=limiter, journal=journal,
+            )
+        return FlushResult(step=step, duration=clock.seconds, **fields)
+
+    def _write_columns(
+        self,
+        files: Dict[str, int],
+        names: Sequence[str],
+        w: WriteColumns,
+        homes: np.ndarray,
+        step: int,
+        *,
+        workers: int,
+        barrier_per_round: bool,
+        cancel: Optional[CancelToken],
+        limiter: Optional[TokenBucket],
+        journal: Optional[FlushJournal],
+    ) -> Dict[str, float]:
+        """``_execute_columns``'s body: the fields of its
+        :class:`FlushResult` other than ``step`` and ``duration``."""
         sdir = self.step_dir(step)
         sdir.mkdir(parents=True, exist_ok=True)
 
@@ -1432,9 +1456,7 @@ class RealExecutor:
 
             for fd in fds.values():
                 os.fsync(fd)
-            return FlushResult(
-                step=step,
-                duration=time.perf_counter() - t0,
+            return dict(
                 bytes_written=total["bytes"],
                 n_writes=total["writes"],
                 bytes_skipped=total["skipped"],
@@ -1599,7 +1621,17 @@ class RealExecutor:
         success claims the destination buffer, the loser is discarded
         (see :class:`HedgePolicy`).
         """
-        t0 = time.perf_counter()
+        with telemetry.Timer() as clock:
+            bufs, fields = self._read_plan(rp, step, on_request, hedge)
+        return bufs, ReadResult(step=step, duration=clock.seconds, **fields)
+
+    def _read_plan(
+        self, rp: ReadPlan, step: int,
+        on_request: Optional[Callable[[int, bytearray], None]],
+        hedge: Optional[HedgePolicy],
+    ) -> Tuple[List[bytearray], Dict[str, int]]:
+        """``execute_read_plan``'s body: the buffers, and the fields of
+        its :class:`ReadResult` other than ``step`` and ``duration``."""
         sdir = self.step_dir(step)
         bufs = [bytearray(int(n)) for n in rp.req_size.tolist()]
         r = rp.reads
@@ -1610,10 +1642,7 @@ class RealExecutor:
             for q in np.flatnonzero(remaining == 0).tolist():
                 on_request(q, bufs[q])
         if not len(r):
-            return bufs, ReadResult(
-                step=step, duration=time.perf_counter() - t0,
-                bytes_read=0, n_reads=0, n_readers=0,
-            )
+            return bufs, dict(bytes_read=0, n_reads=0, n_readers=0)
         fds: Dict[int, int] = {}
         lock = threading.Lock()
         total = {
@@ -1803,9 +1832,7 @@ class RealExecutor:
                     mon.join()
                 for th in hedge_threads:
                     th.join()
-            return bufs, ReadResult(
-                step=step,
-                duration=time.perf_counter() - t0,
+            return bufs, dict(
                 bytes_read=total["bytes"],
                 n_reads=total["reads"],
                 n_readers=n_readers,

@@ -39,6 +39,7 @@ from repro_torch.models.sharding import (
     to_placements,
 )
 from repro_torch.train.optimizer import OptConfig, adamw_update, global_norm, init_opt_state
+from repro_torch.utils import telemetry
 from repro_torch.utils.convert import whole_tensor
 from repro_torch.utils.treelib import flatten_with_names, tree_leaves, tree_map, unflatten
 
@@ -124,10 +125,12 @@ def build_train_step(model: Model, tcfg: TrainConfig):
 
     def train_step(state, batch):
         params = state["params"]
-        loss, grads = loss_and_grads(params, batch)
-        om = adamw_update(grads, state["opt"], params, tcfg.opt)
-        with torch.no_grad():
-            state["step"].add_(1)
+        with telemetry.span("train.loss_and_grads"):
+            loss, grads = loss_and_grads(params, batch)
+        with telemetry.span("train.update"):
+            om = adamw_update(grads, state["opt"], params, tcfg.opt)
+            with torch.no_grad():
+                state["step"].add_(1)
         return state, {"loss": loss.float(), **om}
 
     return train_step
