@@ -361,6 +361,21 @@ class _FlushJob:
 _AUTO_RESUME = object()
 
 
+def pinned_restore(device: torch.device, sharding_fn, precodec: str) -> bool:
+    """Whether a restore decodes into page-locked host memory and hands
+    its leaves to ``_place`` as views of it.
+
+    Only where that host tree is transient: ``_place`` copies it to a
+    CUDA device, by direct DMA from the pinned block, and drops it, and
+    the block goes back to PyTorch's host cache for the next restore of
+    its size. Not with a ``sharding_fn``, which may keep host tensors
+    (and so the whole pinned block); not on the CPU, where ``.to(cpu)``
+    would hand the caller views that share one storage; not under the
+    int8 pre-codec, whose decoded tree is dequantized into new tensors.
+    """
+    return sharding_fn is None and device.type == "cuda" and precodec != "int8"
+
+
 class CheckpointManager:
     def __init__(
         self,
@@ -1749,7 +1764,7 @@ class CheckpointManager:
                 return s, self._place(tree, sharding_fn, s)
             for loader in (self._restore_from_pfs, self._restore_from_local):
                 try:
-                    tree = loader(s, target)
+                    tree = loader(s, target, sharding_fn)
                     return s, self._place(tree, sharding_fn, s)
                 except Exception as e:
                     errors.append(f"step {s} via {loader.__name__}: {e!r}")
@@ -1979,31 +1994,45 @@ class CheckpointManager:
                 )
             return
 
-    def _restore_from_pfs(self, step: int, target: Any) -> Any:
+    def _restore_from_pfs(self, step: int, target: Any, sharding_fn) -> Any:
         man = self._manifest_pfs(step)
         self._check_delta_base(man)
         verify = self.cfg.verify_on_restore
         by_rank = self._read_blobs_pfs(man, step, verify=verify)
         blobs = [by_rank[r] for r in range(man.world_size)]
-        base_stream = self._base_stream(man)
-        with telemetry.span("restore.decode", step=step):
-            tree = decode_state(
-                man, blobs, self._decode_target(man, target), base_stream=base_stream,
-                verify=False,  # arrival hook above already CRC-checked each blob
-                pool=self._decode_pool(),
-            )
-            return self._maybe_dequant(man, tree, target)
+        # the arrival hook above already CRC-checked each blob
+        return self._decode(man, step, blobs, target, sharding_fn, verify=False)
 
-    def _restore_from_local(self, step: int, target: Any) -> Any:
+    def _restore_from_local(self, step: int, target: Any, sharding_fn) -> Any:
         man = self._manifest_local(step)
         self._check_delta_base(man)
         blobs = self._local_blobs(man, step)
+        return self._decode(
+            man, step, blobs, target, sharding_fn, verify=self.cfg.verify_on_restore
+        )
+
+    def _decode(
+        self, man: Manifest, step: int, blobs: List[Any], target: Any, sharding_fn,
+        *, verify: bool,
+    ) -> Any:
+        """A restore's decode of ``blobs``: into a pinned block whose
+        views are the leaves where :func:`pinned_restore` allows, else
+        into ``decode_stream``'s own buffer, the leaves copied out."""
         base_stream = self._base_stream(man)
         with telemetry.span("restore.decode", step=step):
+            into = None
+            if pinned_restore(self.device, sharding_fn, man.precodec):
+                into = torch.empty(man.total_raw_bytes, dtype=torch.uint8, pin_memory=True)
             tree = decode_state(
                 man, blobs, self._decode_target(man, target), base_stream=base_stream,
-                verify=self.cfg.verify_on_restore, pool=self._decode_pool(),
+                verify=verify, pool=self._decode_pool(), into=into,
             )
+            if into is not None and telemetry.enabled():
+                telemetry.count("restore.pinned_bytes", into.nbytes)
+                ptr = into.data_ptr()
+                telemetry.count("restore.view_bytes", sum(
+                    t.nbytes for t in tree_leaves(tree)
+                    if t.untyped_storage().data_ptr() == ptr))
             return self._maybe_dequant(man, tree, target)
 
     def _base_stream(self, man: Manifest) -> Optional[Buffer]:

@@ -416,6 +416,17 @@ def leaf_from_bytes(buf: Any, dtype: str, shape: Sequence[int]) -> torch.Tensor:
     return t.view(tdt) if t.dtype != tdt else t
 
 
+def leaf_view(stream: torch.Tensor, entry: LeafEntry) -> torch.Tensor:
+    """One leaf of a stream held in a uint8 host tensor: a dtype and
+    shape view of its byte range, with no copy, where its offset is a
+    multiple of its element size; a copy where it is not."""
+    tdt = DTYPES[entry.dtype][0]
+    b = stream[entry.offset : entry.offset + entry.size]
+    if entry.offset % tdt.itemsize:
+        b = b.clone()
+    return b.view(tdt).view(tuple(entry.shape))
+
+
 Buffer = Union[bytes, bytearray, memoryview]
 
 
@@ -477,13 +488,22 @@ def serialize_tree(
     return memoryview(buf).toreadonly(), leaves
 
 
-def deserialize_tree(stream: Buffer, leaves: Sequence[LeafEntry], target: Any) -> Any:
+def deserialize_tree(
+    stream: Union[Buffer, torch.Tensor],
+    leaves: Sequence[LeafEntry],
+    target: Any,
+    *,
+    views: bool = False,
+) -> Any:
     """Fill `target`'s structure with leaf values from the stream, as
     host tensors.
 
     `target` may contain tensors, arrays or leaf specs; only the
     structure is used.  Leaf order must match the saved order (name
-    mismatches raise).
+    mismatches raise).  Each leaf is a copy that owns its storage;
+    with ``views``, ``stream`` is a uint8 host tensor the caller owns
+    and each leaf is :func:`leaf_view` of it, so the leaves share its
+    storage and writes to one reach the stream.
     """
     named, treedef = flatten_with_names(target)
     if len(named) != len(leaves):
@@ -494,8 +514,11 @@ def deserialize_tree(stream: Buffer, leaves: Sequence[LeafEntry], target: Any) -
     for (name, _), entry in zip(named, leaves):
         if name != entry.name:
             raise ValueError(f"leaf mismatch: target {name!r} vs saved {entry.name!r}")
-        buf = stream[entry.offset : entry.offset + entry.size]
-        vals.append(leaf_from_bytes(buf, entry.dtype, entry.shape))
+        if views:
+            vals.append(leaf_view(stream, entry))
+        else:
+            buf = stream[entry.offset : entry.offset + entry.size]
+            vals.append(leaf_from_bytes(buf, entry.dtype, entry.shape))
     return unflatten(treedef, vals)
 
 
@@ -1296,6 +1319,7 @@ def decode_stream(
     base_stream: Optional[Buffer] = None,
     verify: bool = True,
     pool: Optional[Executor] = None,
+    out: Optional[np.ndarray] = None,
 ) -> memoryview:
     """Rank blobs -> the raw logical stream, written in place.
 
@@ -1305,7 +1329,8 @@ def decode_stream(
     decompresses/copies *directly into its slice* — no ``b"".join``, no
     per-chunk ``bytes`` churn.  Slices are disjoint, so with ``pool``
     the work runs concurrently (decompression and ``np.copyto`` release
-    the GIL).
+    the GIL).  ``out``, a writable contiguous ``uint8`` array of
+    ``total_raw_bytes``, is that buffer where the caller gives one.
 
     Integrity: chunk-framed manifests verify the per-chunk CRCs inside
     the (pooled) chunk tasks — same coverage as the rank CRC, since
@@ -1315,7 +1340,14 @@ def decode_stream(
     ``verify=False``.
     """
     has_base = manifest.base_step is not None
-    out = np.empty(manifest.total_raw_bytes, np.uint8)
+    if out is None:
+        out = np.empty(manifest.total_raw_bytes, np.uint8)
+    elif (out.dtype != np.uint8 or out.shape != (manifest.total_raw_bytes,)
+          or not out.flags.writeable or not out.flags.c_contiguous):
+        raise ValueError(
+            f"decode destination must be a writable contiguous uint8 array of "
+            f"{manifest.total_raw_bytes} bytes"
+        )
     if len(blobs) != len(manifest.ranks):
         raise IOError("blob count does not match the manifest rank table")
 
@@ -1392,10 +1424,22 @@ def decode_state(
     base_stream: Optional[Buffer] = None,
     verify: bool = True,
     pool: Optional[Executor] = None,
+    into: Optional[torch.Tensor] = None,
 ) -> Any:
+    """Rank blobs -> ``target``'s structure of host tensors.
+
+    Without ``into`` the stream is :func:`decode_stream`'s own buffer
+    and every leaf a copy of its bytes.  ``into``, a uint8 host tensor
+    of ``total_raw_bytes`` that the caller owns, is where the chunks
+    decode, and the leaves come back as views of it
+    (:func:`deserialize_tree` ``views``): each byte is written once.
+    """
     stream = decode_stream(
-        manifest, blobs, base_stream=base_stream, verify=verify, pool=pool
+        manifest, blobs, base_stream=base_stream, verify=verify, pool=pool,
+        out=None if into is None else into.numpy(),
     )
     if len(stream) != manifest.total_raw_bytes:
         raise IOError("reassembled stream has wrong size")
+    if into is not None:
+        return deserialize_tree(into, manifest.leaves, target, views=True)
     return deserialize_tree(stream, manifest.leaves, target)

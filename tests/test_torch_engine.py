@@ -173,6 +173,36 @@ def test_restore_places_leaves_on_config_device(tmp_path):
     assert tree["params"]["h"].dtype == torch.bfloat16
 
 
+def test_cpu_restores_hand_out_leaves_that_own_their_storage(tmp_path):
+    """Off the card no restore decodes into a block whose views are its
+    leaves: the L0 twin's restore, a plain one from the PFS and one
+    through a ``sharding_fn`` each give every leaf a storage of its own,
+    and writing to a restored leaf leaves the twin's stream as it was."""
+    s1 = numpy_state(1)
+    mgr = manager("torch", tmp_path, (2, 2), codec="zstd+delta", chunk_size=4096)
+    mgr.save(1, tree_from_numpy(s1, "cpu"))
+    mgr.wait()
+    assert not mgr.flush_errors
+    twin = bytes(mgr._l0.stream)
+    fresh = manager("torch", tmp_path, (2, 2))
+    for n in range(2):
+        fresh.local.drop_node(n)
+    try:
+        for m, kw in ((mgr, {}), (fresh, {}), (fresh, {"sharding_fn": lambda n, t: t})):
+            step, tree = m.restore(tree_from_numpy(numpy_state(0), "cpu"), step=1, **kw)
+            assert step == 1
+            assert_same(tree_to_numpy(tree), s1)
+            leaves = [t for _, t in flatten_with_names(tree)[0]]
+            assert all(t.untyped_storage().nbytes() == t.nbytes for t in leaves)
+            assert len({t.untyped_storage().data_ptr() for t in leaves}) == len(leaves)
+            for t in leaves:
+                t.reshape(-1).view(torch.uint8).bitwise_not_()
+            assert bytes(mgr._l0.stream) == twin
+    finally:
+        fresh.close()
+        mgr.close()
+
+
 def test_stage_then_in_place_update_saves_staged_bytes(tmp_path):
     """A torch optimizer updates the state in place between stage() and
     the next step; the saved step holds the bytes stage() saw."""

@@ -117,3 +117,79 @@ def test_deserialize_rejects_wrong_names():
     with pytest.raises(ValueError):
         TS.deserialize_tree(stream, leaves, {"other": state["params"], "x": 1,
                                              "y": 2, "z": 3})
+
+
+# -- decode into a destination the caller owns, leaves as views ---------------
+
+
+def view_state(step):
+    """f32, bf16, int32 and uint8 leaves; the last f32 leaf starts 3 bytes
+    past a word boundary, so it cannot be a float32 view of the stream."""
+    g = torch.Generator().manual_seed(step)
+    return {
+        "a_f32": torch.randn(96, 300, generator=g) + step,
+        "b_bf16": torch.randn(40, 130, generator=g).to(torch.bfloat16),
+        "c_i32": torch.randint(-1000, 1000, (7, 12), generator=g, dtype=torch.int32),
+        "d_u8": torch.randint(0, 255, (3,), generator=g, dtype=torch.uint8),
+        "e_f32": torch.full((37,), 0.5 * step),
+    }
+
+
+def _as_bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("codec,step,impl", [
+    ("none", 1, ""), ("zstd+delta", 1, "zstd"), ("zstd+delta", 2, "zstd"),
+    ("zstd+delta", 1, "zlib"), ("zstd+delta", 2, "zlib"),
+], ids=["none", "zstd-anchor", "zstd-delta", "zlib-anchor", "zlib-delta"])
+def test_decode_into_a_destination_gives_views_of_it(monkeypatch, codec, step, impl):
+    if impl == "zlib":   # the backend where zstandard does not import
+        monkeypatch.setattr(TS, "_zstd", None)
+    cluster = t_theta(2, 3)
+    s1 = view_state(1)
+    s2 = dict(s1, e_f32=s1["e_f32"] + 1)
+    e1 = TS.encode_state(1, s1, cluster, codec=codec, chunk_size=4096)
+    e2 = TS.encode_state(2, s2, cluster, codec=codec, base=e1, chunk_size=4096)
+    enc, base = (e1, None) if step == 1 else (e2, e1.stream)
+    man = enc.manifest
+    assert man.codec_impl == impl
+    if step == 2:
+        assert man.base_step == 1
+    entry = {l.name: l for l in man.leaves}
+    assert entry["['e_f32']"].offset % 4 == 3
+    target = view_state(0)
+
+    want = TS.decode_state(man, enc.blobs, target, base_stream=base)
+    into = torch.empty(man.total_raw_bytes, dtype=torch.uint8)
+    got = TS.decode_state(man, enc.blobs, target, base_stream=base, into=into)
+
+    lo, hi = into.data_ptr(), into.data_ptr() + into.nbytes
+    assert bytes(into.numpy()) == bytes(enc.stream)
+    saved = (s1, s2)[step - 1]
+    for name in saved:
+        g, w = got[name], want[name]
+        assert g.dtype == w.dtype == saved[name].dtype and g.shape == w.shape
+        assert torch.equal(_as_bytes(g), _as_bytes(w)), name
+        assert torch.equal(_as_bytes(g), _as_bytes(saved[name])), name
+        # the default call: each leaf a copy that owns its storage
+        assert w.untyped_storage().nbytes() == w.nbytes, name
+        if name == "e_f32":   # misaligned: a copy of its own
+            assert g.untyped_storage().data_ptr() != lo
+            assert g.untyped_storage().nbytes() == g.nbytes
+        else:
+            assert g.untyped_storage().data_ptr() == lo, name
+            assert lo <= g.data_ptr() and g.data_ptr() + g.nbytes <= hi, name
+            assert g.data_ptr() == lo + entry[f"['{name}']"].offset, name
+
+
+def test_decode_destination_must_fit_the_stream():
+    enc = TS.encode_state(1, view_state(1), t_theta(2, 2), codec="zstd", chunk_size=4096)
+    n = enc.manifest.total_raw_bytes
+    for bad in (np.empty(n - 1, np.uint8), np.empty(n, np.int8),
+                np.empty(2 * n, np.uint8)[::2]):
+        with pytest.raises(ValueError):
+            TS.decode_stream(enc.manifest, enc.blobs, out=bad)
+    out = np.zeros(n, np.uint8)
+    got = TS.decode_stream(enc.manifest, enc.blobs, out=out)
+    assert np.shares_memory(np.asarray(got), out) and bytes(out) == bytes(enc.stream)

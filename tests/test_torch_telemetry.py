@@ -9,6 +9,7 @@ from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import CheckpointConfig, CheckpointManager, theta_like
+from repro_torch.core.engine import pinned_restore
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.models import get_model
 from repro_torch.train import OptConfig, TrainConfig, build_train_step, init_train_state
@@ -267,6 +268,61 @@ def test_restore_spans_and_counters(tmp_path):
         report = mgr.validate(2)
         assert report["pfs"] and all(report["pfs"].values())
         assert [sp.name for sp in telemetry.drain()[0]] == []
+    finally:
+        mgr.close()
+
+
+def test_pinned_restore_only_where_the_host_tree_is_transient():
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert pinned_restore(cuda, None, "none")
+    assert not pinned_restore(cpu, None, "none")
+    assert not pinned_restore(cuda, lambda name, t: t, "none")
+    assert not pinned_restore(cuda, None, "int8")
+
+
+@pytest.mark.gpu
+def test_restores_onto_the_card_decode_into_pinned_views(tmp_path):
+    """Two restores in a row onto the card (an anchor, then a delta of
+    it): byte-exact, every host leaf a view of the pinned block the
+    chunks decoded into, and the three counters equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: page-locked memory and the copy to the card")
+    saver = manager(tmp_path)
+    try:
+        for step in (1, 2):
+            saver.save(step, state(step))
+        saver.wait()
+        assert not saver.flush_errors
+    finally:
+        saver.close()
+    mgr = CheckpointManager(CheckpointConfig(
+        root=str(tmp_path), cluster=theta_like(2, 2), device="cuda",
+        codec="zstd+delta", chunk_size=CHUNK, strategy="stripe_aligned"))
+    hosts = []
+    place = mgr._place
+
+    def spy(tree, sharding_fn, step=None):
+        hosts.append(tree_leaves(tree))
+        return place(tree, sharding_fn, step)
+
+    mgr._place = spy
+    try:
+        for n in range(2):
+            mgr.local.drop_node(n)
+        telemetry.enable()
+        for step in (1, 2):
+            got, tree = mgr.restore(state(0), step=step)
+            counts = telemetry.drain()[1]
+            assert got == step
+            want = tree_leaves(state(step))
+            placed = tree_leaves(tree)
+            assert all(t.device.type == "cuda" for t in placed)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(placed, want))
+            assert all(t.is_pinned() for t in hosts[-1])
+            assert len({t.untyped_storage().data_ptr() for t in hosts[-1]}) == 1
+            n = sum(t.nbytes for t in want)
+            assert counts == {"restore.h2d_bytes": n, "restore.view_bytes": n,
+                              "restore.pinned_bytes": n}
     finally:
         mgr.close()
 
