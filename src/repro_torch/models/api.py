@@ -89,13 +89,16 @@ class Model:
     def param_count(self, *, active_only: bool = False) -> int:
         """Parameters of the model, counted on the meta device (no
         memory). ``active_only``: less the routed experts a token does
-        not use (``n_experts - top_k`` of them in every layer)."""
+        not use in each MoE layer (leading dense layers have none): of
+        the experts held here, all but the ``top_k * held / n_experts``
+        that a token uses on average (``n_experts - top_k`` where every
+        expert is held), rounded to a whole parameter."""
         total = sum(math.prod(p.shape) for p in tree_leaves(self.param_struct()))
         if active_only and self.cfg.moe is not None:
             m = self.cfg.moe
             e_ff = m.expert_d_ff or self.cfg.d_ff
-            per_layer_inactive = 3 * self.cfg.d_model * e_ff * (m.n_experts - m.top_k)
-            total -= per_layer_inactive * self.cfg.n_layers
+            unused = m.held - m.top_k * m.held / m.n_experts
+            total -= round(3 * self.cfg.d_model * e_ff * unused * self.cfg.n_moe_layers)
         return total
 
     # -- training -----------------------------------------------------------

@@ -7,6 +7,9 @@ cast to ``v``'s dtype before the PV product. ``scaled_dot_product_attention``
 is not used: its numerics are not the reference's. The query-chunked
 path is a Python loop over chunks in place of ``lax.scan``; it bounds
 the live score tensor to ``(B, H, chunk_q, S_k)``.
+``scale`` replaces the ``hd ** -0.5`` of the scores where a family
+gives its own (MLA's YaRN scale); values may have another head dim
+than queries and keys.
 
 The decode side (``KVCache``, ``cache_update``, ``decode_attention``)
 keeps the reference's value semantics: ``cache_update`` returns a new
@@ -74,9 +77,10 @@ def repeat_kv(k: torch.Tensor, h_q: int) -> torch.Tensor:
     return torch.repeat_interleave(k, h_q // h_kv, dim=2)
 
 
-def _attend_block(q, k, v, mask) -> torch.Tensor:
-    """q: (B,Sq,H,hd) k/v: (B,Sk,H,hd) mask: (Sq,Sk) -> (B,Sq,H,hd)."""
-    scale = q.shape[-1] ** -0.5
+def _attend_block(q, k, v, mask, scale: Optional[float] = None) -> torch.Tensor:
+    """q, k: (B,Sq|Sk,H,hd) v: (B,Sk,H,hd_v) mask: (Sq,Sk) -> (B,Sq,H,hd_v)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     scores = torch.where(mask[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -92,8 +96,9 @@ def attention(
     window: Optional[int] = None,
     q_offset: int = 0,
     chunk_q: Optional[int] = 1024,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd) -> (B, Sq, Hq, hd)."""
+    """q, k: (B, Sq|Sk, Hq|Hkv, hd); v: (B, Sk, Hkv, hd_v) -> (B, Sq, Hq, hd_v)."""
     b, s_q, h_q, hd = q.shape
     s_k = k.shape[1]
     dev = q.device
@@ -103,7 +108,7 @@ def attention(
     if chunk_q is None or s_q <= chunk_q or s_q % chunk_q:
         mask = _scores_mask(s_q, s_k, causal=causal, window=window,
                             q_offset=q_offset, device=dev)
-        return _attend_block(q, k, v, mask)
+        return _attend_block(q, k, v, mask, scale)
 
     # banded path: local attention only ever sees `window + chunk_q` keys
     # per query chunk
@@ -120,7 +125,7 @@ def attention(
         if band is None:
             mask = _scores_mask(chunk_q, s_k, causal=causal, window=window,
                                 q_offset=off, device=dev)
-            outs.append(_attend_block(qi, k, v, mask))
+            outs.append(_attend_block(qi, k, v, mask, scale))
             continue
         start = min(max(off + chunk_q - band, 0), s_k - band)
         kb = k[:, start : start + band]
@@ -128,7 +133,7 @@ def attention(
         qi_pos = off + torch.arange(chunk_q, device=dev)[:, None]
         kb_pos = start + torch.arange(band, device=dev)[None, :]
         mask = (kb_pos <= qi_pos) & (kb_pos > qi_pos - window)
-        outs.append(_attend_block(qi, kb, vb, mask))
+        outs.append(_attend_block(qi, kb, vb, mask, scale))
     return torch.cat(outs, dim=1)
 
 

@@ -11,6 +11,7 @@ reference repeats the same lines in each.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -61,6 +62,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def yarn_correction_range(rs, dim: int, theta: float) -> Tuple[int, int]:
+    """The first and last rotary pair index of YaRN's ramp: the pairs
+    that turn ``beta_fast`` and ``beta_slow`` times over the original
+    context, floored and ceiled, within ``[0, dim - 1]``."""
+    def at(rotations):
+        return (dim * math.log(rs.original_max_position_embeddings
+                               / (rotations * 2 * math.pi))) / (2 * math.log(theta))
+    return max(math.floor(at(rs.beta_fast)), 0), min(math.ceil(at(rs.beta_slow)), dim - 1)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_inv_freq(dim: int, theta: float, rs, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (dim/2,) float32, as DeepSeek-V2 blends
+    them: ``theta ** (-2i/dim)`` below the ramp, that over ``factor``
+    above it, linear in between."""
+    extra = rope_freqs(dim, theta, device=device)
+    low, high = yarn_correction_range(rs, dim, theta)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    return extra / rs.factor * ramp + extra * (1.0 - ramp)
+
+
+def apply_rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
+                           inv_freq: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, hd) with rotary pairs interleaved ``(x0, x1), (x2,
+    x3), ...``; positions broadcastable to (..., S). DeepSeek-V2's
+    rotation: de-interleave to ``[x0, x2, ..., x1, x3, ...]``, then the
+    half-split rotation in float32 at ``inv_freq``. The output stays
+    de-interleaved (queries and keys alike, so scores are unchanged)."""
+    angles = positions[..., None].float() * inv_freq           # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def sinusoidal_positions_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:

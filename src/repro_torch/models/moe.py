@@ -19,6 +19,25 @@ sum of two writes and the buffer is the reference's (whose scatter-add
 adds a zero for each dropped slot at C - 1) under deterministic
 algorithms on any device. Combine gathers ``h[b, sel, pos]`` at the
 clipped position and weights it by ``gates * keep``.
+
+:func:`moe_ffn_dropless` is DeepSeek's layer (``MoEConfig.dropless``):
+softmax over every expert of the router (float32), greedy top-k on the
+probabilities with the lower index first on ties, the selected
+probabilities as weights (DeepSeek-V2-Lite neither renormalises nor
+scales them), and no capacity. The layer holds the
+experts ``held_start .. held_start + n_held - 1`` of the router's
+``n_experts`` (expert parallelism: the other shares live on other
+devices, and on one device the exchange is absent) and computes only
+their part of ``sum_k w_k E_k(x)``: slots routed elsewhere add nothing.
+Held slots are sorted by expert (stable, so in token order within an
+expert), their rows gathered, and the three products run as grouped
+matrix products over the held experts (``torch._grouped_mm``) on the
+exact slot counts, which the host learns once a layer. The weighted rows
+are added back to their tokens in float32 (``index_add_``: deterministic
+under ``deterministic_algorithms()``). The shared experts and the aux
+loss (over all ``n_experts``, so every share computes the same) are
+computed once. The layer also returns its routing counts, on the device:
+all slots, the held slots, and the busiest held expert's slots.
 """
 from __future__ import annotations
 
@@ -103,3 +122,63 @@ def swiglu_experts(buf: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.
                   "dp", "tp", None, None)
     h = F.silu(g.float()).to(dt) * u
     return torch.einsum("becf,efd->becd", h, params["w_down"].to(dt))
+
+
+def seq_aux_loss(probs: torch.Tensor, sel: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """DeepSeek's sequence-wise balance loss: per sequence, each expert's
+    share of the slots over its fair share times its mean probability,
+    summed over the experts; the mean over the sequences, times the
+    weight. probs (B, S, E), sel (B, S, K)."""
+    b, s, e = probs.shape
+    k = sel.shape[-1]
+    load = F.one_hot(sel.reshape(b, s * k), e).sum(1).float() / (s * k / e)   # (B, E)
+    return (load * probs.mean(dim=1)).sum(dim=1).mean() * moe.router_aux_weight
+
+
+def grouped_swiglu(rows: torch.Tensor, offs: torch.Tensor,
+                   params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """SwiGLU of each held expert on its rows: ``rows`` (N, d) sorted by
+    expert, ``offs`` (E_held,) int32 the end of each expert's rows."""
+    dt = rows.dtype
+    g = torch._grouped_mm(rows, params["w_gate"].to(dt), offs=offs)
+    u = torch._grouped_mm(rows, params["w_up"].to(dt), offs=offs)
+    h = F.silu(g.float()).to(dt) * u
+    return torch._grouped_mm(h, params["w_down"].to(dt), offs=offs)
+
+
+def moe_ffn_dropless(
+    x: torch.Tensor, params: Dict[str, torch.Tensor], moe: MoEConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out (B, S, d), aux loss () float32, counts (3,)
+    int64: routed slots, held slots, the busiest held expert's slots)."""
+    b, s, d = x.shape
+    k, held, lo = moe.top_k, moe.held, moe.held_start
+    probs = torch.softmax(x.float() @ params["router"].float(), dim=-1)   # (B, S, E)
+    # greedy top-k, the lower index first on ties
+    w, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, sel = w[..., :k], sel[..., :k]
+    aux = seq_aux_loss(probs, sel, moe)
+
+    # held slots, sorted by expert (stable: token order within an expert)
+    local = (sel - lo).reshape(-1)                                      # (B*S*K,)
+    is_held = (local >= 0) & (local < held)
+    key = torch.where(is_held, local, held)
+    order = torch.sort(key, stable=True)[1]
+    per_expert = torch.bincount(key, minlength=held + 1)[:held]
+    n = int(per_expert.sum())          # the host learns the rows once a layer
+    order = order[:n]
+    token = order // k
+    flat = x.reshape(b * s, d)
+    out = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    if n:
+        offs = torch.cumsum(per_expert, 0).to(torch.int32)
+        y = grouped_swiglu(flat.index_select(0, token), offs, params)
+        y = y.float() * w.reshape(-1).index_select(0, order)[:, None]
+        out = out.index_add(0, token, y)
+    out = out.to(x.dtype).reshape(b, s, d)
+    if "shared_gate" in params:
+        out = out + swiglu(x, params["shared_gate"], params["shared_up"], params["shared_down"])
+    counts = torch.stack([torch.full_like(per_expert[0], b * s * k), per_expert.sum(),
+                          per_expert.max()])
+    return out, aux, counts
+

@@ -34,6 +34,16 @@ capacity of their own sequence length (the prompt's, patches included;
 The reference's sharding pins (``shard_act``, ``pad_heads_for_tp``) sit
 where it has them; they change nothing without an
 ``activation_sharding`` mesh.
+
+The port's own DeepSeek-V2 blocks (no reference counterpart): latent
+attention (:mod:`.mla`) in place of GQA where ``cfg.mla``, the
+``first_k_dense_replace`` leading layers as a stack of their own
+(``dense_layers``, a dense SwiGLU of width ``d_ff``) before the MoE
+stack (``layers``), and the dropless MoE layer over the experts held
+here (:func:`~repro_torch.models.moe.moe_ffn_dropless`), whose routing
+counts ``lm_loss`` returns summed over the layers (``moe_counts``, on
+the device). Serving MLA is not ported: ``prefill`` and ``decode_step``
+raise for it.
 """
 from __future__ import annotations
 
@@ -48,7 +58,9 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, cross_entropy, new_param, rms_norm, swiglu
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.mla import check_not_mla, mla
+from repro_torch.models.mla import shapes as mla_shapes
+from repro_torch.models.moe import moe_ffn, moe_ffn_dropless
 from repro_torch.models.sharding import shard_act
 from repro_torch.utils.treelib import flatten_with_names, unflatten
 
@@ -58,22 +70,27 @@ from repro_torch.utils.treelib import flatten_with_names, unflatten
 # ---------------------------------------------------------------------------
 
 
-def layer_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+def layer_shapes(cfg: ModelConfig, *, dense: bool = False) -> Dict[str, Any]:
     """Per-layer shape of every stacked parameter, in the reference's
-    order of initialisation; the MoE FFN's are nested under ``"moe"``."""
+    order of initialisation; the MoE FFN's are nested under ``"moe"``
+    (the experts held here, the router over all of them). ``dense``: a
+    leading dense layer's, a SwiGLU of width ``d_ff``."""
     d, hd = cfg.d_model, cfg.hd
     q_dim = cfg.n_heads * hd
     kv_dim = cfg.n_kv_heads * hd
-    shapes: Dict[str, Any] = {
-        "wq": (d, q_dim), "wk": (d, kv_dim), "wv": (d, kv_dim), "wo": (q_dim, d),
-        "ln1": (d,), "ln2": (d,)}
+    if cfg.mla:
+        shapes: Dict[str, Any] = mla_shapes(cfg)
+        shapes.update(ln1=(d,), ln2=(d,))
+    else:
+        shapes = {"wq": (d, q_dim), "wk": (d, kv_dim), "wv": (d, kv_dim), "wo": (q_dim, d),
+                  "ln1": (d,), "ln2": (d,)}
     if cfg.qkv_bias:
         shapes.update(bq=(q_dim,), bk=(kv_dim,), bv=(kv_dim,))
-    if cfg.moe is not None:
+    if cfg.moe is not None and not dense:
         m = cfg.moe
         e_ff = m.expert_d_ff or cfg.d_ff
-        moe = {"router": (d, m.n_experts), "w_gate": (m.n_experts, d, e_ff),
-               "w_up": (m.n_experts, d, e_ff), "w_down": (m.n_experts, e_ff, d)}
+        moe = {"router": (d, m.n_experts), "w_gate": (m.held, d, e_ff),
+               "w_up": (m.held, d, e_ff), "w_down": (m.held, e_ff, d)}
         if m.n_shared:
             sh_ff = m.shared_d_ff or m.n_shared * e_ff
             moe.update(shared_gate=(d, sh_ff), shared_up=(d, sh_ff), shared_down=(sh_ff, d))
@@ -83,7 +100,7 @@ def layer_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return shapes
 
 
-_ZERO_INIT = ("ln1", "ln2", "bq", "bk", "bv")
+_ZERO_INIT = ("ln1", "ln2", "ln_kv", "bq", "bk", "bv")
 # the router stays float32 whatever the parameter dtype (reference
 # init_layer), so its AdamW moments are float32 too
 _FLOAT32_LEAVES = ("router",)
@@ -97,7 +114,8 @@ class Transformer(nn.Module):
     device, then placed on ``device``); without one they are left
     uninitialised (``torch.empty``), to be loaded. The MoE FFN's stacks
     are the module's ``moe`` (``None`` for a dense FFN); ``state_tree``
-    nests them under ``layers`` as the reference does.
+    nests them under ``layers`` as the reference does. Leading dense
+    layers are the module's ``dense_layers`` (``None`` without them).
     """
 
     def __init__(self, cfg: ModelConfig, *, device, generator: Optional[torch.Generator] = None):
@@ -108,7 +126,7 @@ class Transformer(nn.Module):
         def make(shape, init, *, layers=None, dtype=cfg.pdt):
             return new_param(generator, shape, dtype, device, init, layers=layers)
 
-        def stacks(shapes):
+        def stacks(shapes, n=n):
             return nn.ParameterDict({
                 name: make(shape, 0.0 if name in _ZERO_INIT else "dense", layers=n,
                            dtype=torch.float32 if name in _FLOAT32_LEAVES else cfg.pdt)
@@ -118,10 +136,12 @@ class Transformer(nn.Module):
         self.embed = make((v, d), "embed")
         self.final_norm = make((d,), 0.0)
         self.out = None if cfg.tie_embeddings else make((v, d), "dense")
+        k = cfg.first_k_dense_replace
+        self.dense_layers = stacks(layer_shapes(cfg, dense=True), k) if k else None
         shapes = layer_shapes(cfg)
         moe = shapes.pop("moe", None)
-        self.layers = stacks(shapes)
-        self.moe = None if moe is None else stacks(moe)
+        self.layers = stacks(shapes, n - k)
+        self.moe = None if moe is None else stacks(moe, n - k)
 
     def state_tree(self) -> Dict[str, Any]:
         """The reference's parameter tree; its leaves are this module's
@@ -134,6 +154,8 @@ class Transformer(nn.Module):
             "final_norm": self.final_norm,
             "layers": layers,
         }
+        if self.dense_layers is not None:
+            tree["dense_layers"] = dict(self.dense_layers.items())
         if self.out is not None:
             tree["out"] = self.out
         return tree
@@ -189,13 +211,18 @@ def _out(p, cfg: ModelConfig, o):
 
 
 def _ffn(p, cfg: ModelConfig, x):
-    """The residual FFN half of a block: ``x + ffn(rms_norm(x))``, and
-    the MoE FFN's aux loss (``None`` for a dense FFN)."""
+    """The residual FFN half of a block: ``(x + ffn(rms_norm(x)), aux,
+    counts)``: the MoE FFN's aux loss (``None`` for a dense FFN, as in a
+    leading dense layer, whose ``p`` has no ``"moe"``) and the dropless
+    layer's routing counts (else ``None``)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if cfg.moe is not None:
-        f, aux = moe_ffn(h, p["moe"], cfg.moe)
-        return x + f, aux
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
+    if "moe" not in p:
+        return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None, None
+    if cfg.moe.dropless:
+        f, aux, counts = moe_ffn_dropless(h, p["moe"], cfg.moe)
+        return x + f, aux, counts
+    f, aux = moe_ffn(h, p["moe"], cfg.moe)
+    return x + f, aux, None
 
 
 def _block_kv(p, cfg: ModelConfig, x, positions, *, chunk_q):
@@ -203,14 +230,19 @@ def _block_kv(p, cfg: ModelConfig, x, positions, *, chunk_q):
     (B, S, H_kv, hd)."""
     q, k, v = _qkv(p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions)
     o = _attend(cfg, q, k, v, chunk_q=chunk_q)
-    x, aux = _ffn(p, cfg, x + _out(p, cfg, o))
+    x, aux, _ = _ffn(p, cfg, x + _out(p, cfg, o))
     return x, aux, k, v
 
 
 def block(p, cfg: ModelConfig, x, positions, *, chunk_q=1024):
-    """One block: ``(x, aux)``; aux is ``None`` for a dense FFN (the
-    reference's zero, which adds nothing)."""
-    return _block_kv(p, cfg, x, positions, chunk_q=chunk_q)[:2]
+    """One block: ``(x, aux, counts)``; aux is ``None`` for a dense FFN
+    (the reference's zero, which adds nothing), counts ``None`` but for
+    the dropless MoE layer."""
+    if cfg.mla:
+        x = x + mla(p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions, chunk_q=chunk_q)
+        return _ffn(p, cfg, x)
+    x, aux, _, _ = _block_kv(p, cfg, x, positions, chunk_q=chunk_q)
+    return x, aux, None
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, patches=None):
@@ -246,30 +278,42 @@ def forward(
     remat: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, V), aux loss () float32)."""
+    return _forward(params, cfg, tokens, patches=patches, chunk_q=chunk_q, remat=remat)[:2]
+
+
+def _forward(params, cfg: ModelConfig, tokens, *, patches, chunk_q, remat):
+    """-> (logits, aux, routing counts (3,) int64 summed over the layers,
+    or ``None`` without a dropless MoE layer)."""
     if chunk_q == -1:
         chunk_q = cfg.chunk_q
     x = embed_inputs(params, cfg, tokens, patches)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    treedef, per_layer = _layer_slices(params)
     # sequence parallelism on the carried residual stream (the
     # reference's rule): worth its per-layer seq re-gathers only for wide
     # models
     sp_axis = "tp" if cfg.d_model >= 4096 else None
-
-    def body(h, *lp):
-        return block(unflatten(treedef, list(lp)), cfg, h, positions, chunk_q=chunk_q)
-
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in per_layer:
-        if remat:
-            x, a = checkpoint(body, x, *lp, use_reentrant=False)
-        else:
-            x, a = body(x, *lp)
-        x = shard_act(x, "dp", sp_axis, None)
-        if a is not None:
-            aux = aux + a
-    return shard_act(_logits(params, cfg, x), "dp", None, "tp"), aux
+    counts = None
+    for key in ("dense_layers", "layers"):
+        if key not in params:
+            continue
+        treedef, per_layer = _layer_slices(params, key)
+
+        def body(h, *lp, treedef=treedef):
+            return block(unflatten(treedef, list(lp)), cfg, h, positions, chunk_q=chunk_q)
+
+        for lp in per_layer:
+            if remat:
+                x, a, c = checkpoint(body, x, *lp, use_reentrant=False)
+            else:
+                x, a, c = body(x, *lp)
+            x = shard_act(x, "dp", sp_axis, None)
+            if a is not None:
+                aux = aux + a
+            if c is not None:
+                counts = c if counts is None else counts + c
+    return shard_act(_logits(params, cfg, x), "dp", None, "tp"), aux, counts
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -287,12 +331,18 @@ def lm_loss(
     chunk_q: Optional[int] = -1,
     remat: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy (patch prefix positions excluded)."""
-    logits, aux = forward(params, cfg, tokens, patches=patches, chunk_q=chunk_q, remat=remat)
+    """Next-token cross-entropy (patch prefix positions excluded) plus
+    the aux losses; ``moe_counts`` (routed, held and the busiest held
+    expert's slots, summed over the layers) where a layer is dropless."""
+    logits, aux, counts = _forward(params, cfg, tokens, patches=patches, chunk_q=chunk_q,
+                                   remat=remat)
     n_prefix = 0 if patches is None else patches.shape[1]
     # predict tokens[t+1] from position n_prefix + t
     ce = cross_entropy(logits[:, n_prefix : n_prefix + tokens.shape[1] - 1], tokens[:, 1:])
-    return ce + aux, {"ce": ce, "aux": aux}
+    extras = {"ce": ce, "aux": aux}
+    if counts is not None:
+        extras["moe_counts"] = counts
+    return ce + aux, extras
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +357,7 @@ class DecodeCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, b: int, s_max: int, device=None) -> DecodeCache:
+    check_not_mla(cfg, "a decode cache")
     shape = (cfg.n_layers, b, s_max, cfg.n_kv_heads, cfg.hd)
     return DecodeCache(
         k=torch.zeros(shape, dtype=cfg.cdt, device=device),
@@ -326,6 +377,7 @@ def prefill(
 ) -> Tuple[DecodeCache, torch.Tensor]:
     """Run the prompt (patches first), build the KV cache, return
     logits of the last token."""
+    check_not_mla(cfg, "prefill")
     if chunk_q == -1:
         chunk_q = cfg.chunk_q
     x = embed_inputs(params, cfg, tokens, patches)
@@ -348,6 +400,7 @@ def decode_step(
 ) -> Tuple[torch.Tensor, DecodeCache]:
     """tokens: (B, 1) -> (logits (B, V), updated cache); ``cache`` is
     left unchanged."""
+    check_not_mla(cfg, "decode")
     x = embed_inputs(params, cfg, tokens)                  # (B, 1, d)
     positions = cache.pos + torch.zeros((1, 1), dtype=torch.int32, device=x.device)
     pos = cache.pos + 1
@@ -357,5 +410,5 @@ def decode_step(
         write_at_(ks[layer], k, cache.pos)
         write_at_(vs[layer], v, cache.pos)
         o = decode_attention(q, KVCache(ks[layer], vs[layer], pos), window=cfg.window)
-        x, _ = _ffn(p, cfg, x + _out(p, cfg, o))
+        x = _ffn(p, cfg, x + _out(p, cfg, o))[0]
     return _logits(params, cfg, x[:, 0]), DecodeCache(k=ks, v=vs, pos=pos)

@@ -9,7 +9,10 @@ stacks, or the recurrent families' per-layer ``blocks``). The step updates the s
 Microbatches run as a Python loop (``lax.scan`` there), every batch
 leaf (the tokens, and a VLM batch's patches) split on its first axis
 and each gradient added as ``g_acc + g / k`` in ``accum_dtype``. The
-loss is the model's: cross-entropy plus the MoE layers' aux loss.
+loss is the model's: cross-entropy plus the MoE layers' aux loss. A
+dropless MoE model's routing counts go to the recorder on the device
+(``telemetry.count_device``, :data:`MOE_COUNTERS`), read back only when
+it is drained.
 
 ``make_train_step`` is the step on a ``DeviceMesh``: the state's leaves
 are DTensors laid out by ``train_state_specs`` (the reference's
@@ -42,6 +45,12 @@ from repro_torch.train.optimizer import OptConfig, adamw_update, global_norm, in
 from repro_torch.utils import telemetry
 from repro_torch.utils.convert import whole_tensor
 from repro_torch.utils.treelib import flatten_with_names, tree_leaves, tree_map, unflatten
+
+
+# a dropless MoE model's routing counts, summed over its layers (the
+# forward's; remat's recompute is not counted again): every (token, k)
+# slot, the slots of the experts held here, the busiest held expert's
+MOE_COUNTERS = ("moe.routed_slots", "moe.held_slots", "moe.held_max_slots")
 
 
 @dataclass(frozen=True)
@@ -92,7 +101,9 @@ def _loss_and_grads(model: Model, tcfg: TrainConfig):
 
     def grads_of(params, mb):
         named, treedef = flatten_with_names(params)
-        loss, _ = model.loss(params, mb, remat=tcfg.remat)
+        loss, extras = model.loss(params, mb, remat=tcfg.remat)
+        if "moe_counts" in extras:
+            telemetry.count_device(MOE_COUNTERS, extras["moe_counts"])
         grads = torch.autograd.grad(loss, [p for _, p in named])
         return loss.detach(), unflatten(treedef, list(grads))
 

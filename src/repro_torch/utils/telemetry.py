@@ -19,7 +19,10 @@ while the recorder is on: one pair of clock reads serves both. The buffer holds 
 ``MAX_SPANS`` spans, so a job that leaves the recorder on stays bounded.
 
 No device tensor is read to label a span: a train step's spans carry no
-step id, since its step counter lives on the device.
+step id, since its step counter lives on the device. Counters computed on
+the device (:func:`count_device`: the dropless MoE layers' routing
+counts) are added up there, one small add a call, and read back once, by
+:func:`drain`: nothing in a step waits for them.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 # ``_is_profiler_enabled`` is the flag torch keeps for fast checks: true
 # from a profiler's start to its stop
+import torch
 from torch.autograd import profiler as _profiler
 
 MAX_SPANS = 1 << 16
@@ -50,6 +54,7 @@ _on = False
 _spans: "deque[Span]" = deque(maxlen=MAX_SPANS)
 _counts: Dict[str, int] = {}
 _counts_lock = threading.Lock()
+_device_counts: Dict[Tuple[str, ...], "torch.Tensor"] = {}
 _ids = itertools.count(1)
 _local = threading.local()
 
@@ -82,6 +87,11 @@ def drain() -> Tuple[List[Span], Dict[str, int]]:
     with _counts_lock:
         counts = dict(_counts)
         _counts.clear()
+        held = list(_device_counts.items())
+        _device_counts.clear()
+    for names, total in held:
+        for name, n in zip(names, total.tolist()):
+            counts[name] = counts.get(name, 0) + int(n)
     return spans, counts
 
 
@@ -91,6 +101,18 @@ def count(name: str, n: int) -> None:
         return
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def count_device(names: Tuple[str, ...], values: "torch.Tensor") -> None:
+    """Add ``values`` (an integer tensor of ``len(names)`` entries, on any
+    device) to the counters ``names``, on that device: no read back
+    until :func:`drain`."""
+    if not (_on or _profiler._is_profiler_enabled):
+        return
+    with _counts_lock:
+        total = _device_counts.get(names)
+        _device_counts[names] = (values.detach().to(torch.int64) if total is None
+                                 else total + values.detach())
 
 
 def _stack() -> List[int]:

@@ -142,9 +142,26 @@ def test_configs_are_the_reference_configs():
         for ours, theirs in ((get_config(arch), ref_get_config(arch)),
                              (get_smoke_config(arch), ref_smoke_config(arch))):
             a, b = vars(ours).copy(), vars(theirs).copy()
-            assert str(a.pop("moe")) == str(b.pop("moe")).replace("repro.", "repro_torch."), arch
-            assert a == b, arch
+            moe_a, moe_b = a.pop("moe"), b.pop("moe")
+            assert (moe_a is None) == (moe_b is None), arch
+            if moe_a is not None:
+                assert _common_fields_equal(moe_a, moe_b), arch
+            assert _common_fields_equal(ours, theirs, a, b), arch
             assert str(ours.pdt) == "torch." + str(theirs.pdt)
+
+
+def _common_fields_equal(ours, theirs, a=None, b=None) -> bool:
+    """The reference's fields equal, and the port's own fields (MLA, the
+    MoE layer's held share and routing, leading dense layers) at their
+    defaults, which is what the reference computes."""
+    import dataclasses
+
+    a = vars(ours).copy() if a is None else a
+    b = vars(theirs).copy() if b is None else b
+    defaults = {f.name: f.default for f in dataclasses.fields(ours)}
+    own = set(a) - set(b)
+    return ({k: a[k] for k in b} == b
+            and all(a[k] == defaults[k] for k in own))
 
 
 # -- layers ----------------------------------------------------------------
