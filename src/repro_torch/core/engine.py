@@ -1920,7 +1920,7 @@ class CheckpointManager:
     def _read_blobs_pfs(
         self, man: Manifest, step: int, ranks: Optional[List[int]] = None,
         *, record: bool = True, verify: bool = False,
-    ) -> Dict[int, bytearray]:
+    ) -> Dict[int, memoryview]:
         """Fetch stored rank blobs through ONE aggregated :class:`ReadPlan`.
 
         The read-side twin of the flush: the manifest's placement is
@@ -1955,14 +1955,25 @@ class CheckpointManager:
         if verify:
             expected = [man.ranks[int(r)].crc for r in sel.tolist()]
 
-            def on_request(i: int, buf: bytearray) -> None:
+            def on_request(i: int, buf: memoryview) -> None:
                 if crc32(buf) != expected[i]:
                     bad.append(int(sel[i]))  # list.append is atomic
 
         # the scrub's reads (record=False) are no restore's
         with telemetry.span("restore.read", step=step) if record else telemetry.NOOP:
+            # On the card the blobs land in a block of PyTorch's pinned
+            # host cache: from the second read of a size on, its pages
+            # are resident and the preads fault none in. Partial
+            # restores keep plain blocks, of sizes that would each hold
+            # a cached one.
+            out = (
+                torch.empty(int(sizes[sel].sum()), dtype=torch.uint8, pin_memory=True).numpy()
+                if self.device.type == "cuda"
+                else None
+            )
             bufs, res = self.executor.execute_read_plan(
-                rp, step, on_request=on_request, hedge=self._hedge_policy(man, step)
+                rp, step, on_request=on_request, hedge=self._hedge_policy(man, step),
+                out=out,
             )
         if record:  # the scrub passes False so restore telemetry survives
             self.last_read_result = res

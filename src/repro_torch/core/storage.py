@@ -1595,13 +1595,19 @@ class RealExecutor:
 
     def execute_read_plan(
         self, rp: ReadPlan, step: int,
-        *, on_request: Optional[Callable[[int, bytearray], None]] = None,
+        *, on_request: Optional[Callable[[int, memoryview], None]] = None,
         hedge: Optional[HedgePolicy] = None,
-    ) -> Tuple[List[bytearray], ReadResult]:
+        out: Optional[np.ndarray] = None,
+    ) -> Tuple[List[memoryview], ReadResult]:
         """Run a :class:`ReadPlan` as ranged ``pread``s via the thread pool.
 
         Returns one buffer per request (``rp.req_size[i]`` bytes each)
-        plus aggregate stats.  The worker-pool sizing mirrors the write
+        plus aggregate stats.  The buffers are writable ``memoryview``
+        slices, in request order, of one block allocated without a fill
+        (``out``, a writable contiguous ``uint8`` array of
+        ``rp.req_size.sum()`` bytes, where the caller gives one), which
+        each pread lands in directly: ``os.preadv``, no temporary, no
+        copy under the GIL.  The worker-pool sizing mirrors the write
         side: idle readers steal from the shared queue, so one straggling
         consumer node does not serialize the restore.  Short reads raise
         ``IOError`` — corruption is then surfaced by the caller's CRC
@@ -1619,21 +1625,35 @@ class RealExecutor:
         watchdog re-issues any extent whose pread outlives the rolling
         latency-quantile deadline through ``hedge.alt_read`` — first
         success claims the destination buffer, the loser is discarded
-        (see :class:`HedgePolicy`).
+        (see :class:`HedgePolicy`).  A hedged plan reads both sides into
+        temporaries and only the claim's winner copies into place: a
+        losing primary must not write into a buffer already claimed and
+        CRC-checked.  The counters ``pfs.read_direct_bytes`` and
+        ``pfs.read_copied_bytes`` say which of the two a plan took.
         """
+        n = int(rp.req_size.sum())
+        if out is not None and (out.dtype != np.uint8 or out.shape != (n,)
+                                or not out.flags.writeable or not out.flags.c_contiguous):
+            raise ValueError(
+                f"read destination must be a writable contiguous uint8 array of {n} bytes"
+            )
         with telemetry.Timer() as clock:
-            bufs, fields = self._read_plan(rp, step, on_request, hedge)
+            bufs, fields = self._read_plan(rp, step, on_request, hedge, out)
         return bufs, ReadResult(step=step, duration=clock.seconds, **fields)
 
     def _read_plan(
         self, rp: ReadPlan, step: int,
-        on_request: Optional[Callable[[int, bytearray], None]],
-        hedge: Optional[HedgePolicy],
-    ) -> Tuple[List[bytearray], Dict[str, int]]:
+        on_request: Optional[Callable[[int, memoryview], None]],
+        hedge: Optional[HedgePolicy], out: Optional[np.ndarray],
+    ) -> Tuple[List[memoryview], Dict[str, int]]:
         """``execute_read_plan``'s body: the buffers, and the fields of
         its :class:`ReadResult` other than ``step`` and ``duration``."""
         sdir = self.step_dir(step)
-        bufs = [bytearray(int(n)) for n in rp.req_size.tolist()]
+        # no fill: the plan's reads tile every request, and the pages of
+        # a new block fault in inside the preads, off the GIL
+        sizes = rp.req_size.tolist()
+        block = memoryview(np.empty(sum(sizes), np.uint8) if out is None else out)
+        bufs = [block[e - n : e] for n, e in zip(sizes, np.cumsum(sizes).tolist())]
         r = rp.reads
         remaining = np.bincount(
             r.dst_req, minlength=rp.n_requests
@@ -1670,11 +1690,14 @@ class RealExecutor:
         stop = threading.Event()
         all_claimed = threading.Event()
         hedge_threads: List[threading.Thread] = []
+        # unhedged, each row has one reader, which reads into its place
+        direct = hedge is None
 
         def complete(i: int, row, data, *, won_hedge: bool) -> bool:
             """Claim row ``i`` for this result; the winner fills the
-            destination and fires request completion.  Returns False if
-            the other side already won (loser's bytes discarded)."""
+            destination (``data`` None: the pread already did) and fires
+            request completion.  Returns False if the other side already
+            won (loser's bytes discarded)."""
             fid, foff, size, req, doff, reader = row
             with lock:
                 if claimed[i]:
@@ -1682,7 +1705,8 @@ class RealExecutor:
                     return False
                 claimed[i] = True
                 finished[i] = True
-            bufs[req][doff : doff + size] = data
+            if data is not None:
+                bufs[req][doff : doff + size] = data
             with lock:
                 total["bytes"] += size
                 total["reads"] += 1
@@ -1705,13 +1729,25 @@ class RealExecutor:
                     finished[i] = True
                     return
                 starts[i] = time.monotonic()
+            fd = fds[fid]
+            dest = bufs[req][doff : doff + size]
 
-            def attempt() -> bytes:
+            def attempt():
+                """The row's bytes (hedged), else how many of them
+                landed in ``dest`` before the end of the file."""
                 if self.faults is not None:
                     self.faults.on_op(
                         "pfs", "read", rp.file_names[fid], node=reader
                     )
-                return os.pread(fds[fid], size, foff)
+                if not direct:
+                    return os.pread(fd, size, foff)
+                got = 0
+                while got < size:
+                    n = os.preadv(fd, [dest[got:]], foff + got)
+                    if n == 0:
+                        break
+                    got += n
+                return got
 
             try:
                 data = (
@@ -1726,7 +1762,8 @@ class RealExecutor:
                         return  # the hedge already delivered this extent
                 raise
             dt = time.monotonic() - starts[i]
-            if len(data) != size:
+            got = data if direct else len(data)
+            if got != size:
                 with lock:
                     finished[i] = True
                 raise IOError(
@@ -1737,7 +1774,7 @@ class RealExecutor:
                 health.note_latency(f"reader:n{reader}", dt)
             with lock:
                 lat_samples.append(dt)
-            complete(i, row, data, won_hedge=False)
+            complete(i, row, None if direct else data, won_hedge=False)
 
         def run_hedge(i: int, row) -> None:
             fid, foff, size, req, doff, reader = row
@@ -1832,6 +1869,8 @@ class RealExecutor:
                     mon.join()
                 for th in hedge_threads:
                     th.join()
+            telemetry.count("pfs.read_direct_bytes", total["bytes"] if direct else 0)
+            telemetry.count("pfs.read_copied_bytes", 0 if direct else total["bytes"])
             return bufs, dict(
                 bytes_read=total["bytes"],
                 n_reads=total["reads"],

@@ -381,22 +381,28 @@ def test_elastic_restore_new_geometry(tmp_path):
     mgr2.close()
 
 
-def test_corruption_detected(tmp_path):
+@pytest.mark.parametrize("damage", ["flip", "truncate"])
+def test_corruption_detected(tmp_path, damage):
     mgr = CheckpointManager(
         cpu_config(root=str(tmp_path), cluster=theta_like(2, 1),
                    strategy="stripe_aligned")
     )
     mgr.save(1, state_tree(1))
     mgr.wait()
-    # flip a byte in the aggregate file AND drop local copies
+    # flip a byte in the aggregate file (the arrival CRC fails) or cut
+    # it short (a short read), AND drop local copies
     agg = next((mgr.pfs_dir / "step_00000001").glob("aggregate.dat"))
     data = bytearray(agg.read_bytes())
-    data[100] ^= 0xFF
+    if damage == "flip":
+        data[100] ^= 0xFF
+    else:
+        del data[len(data) // 2 :]
     agg.write_bytes(bytes(data))
     for n in range(2):
         mgr.local.drop_node(n)
     mgr._l0 = None
-    with pytest.raises(FileNotFoundError):
+    why = "checksum mismatch on arrival" if damage == "flip" else "short PFS read"
+    with pytest.raises(FileNotFoundError, match=why):
         mgr.restore(target_tree())
     mgr.close()
 

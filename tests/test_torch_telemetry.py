@@ -262,7 +262,11 @@ def test_restore_spans_and_counters(tmp_path):
                 assert reads[1].parent == b.id and reads[1].step == base
             rr = mgr.last_read_result
             assert 0 < rr.duration <= secs(reads[-1])
-            assert counts == {"restore.h2d_bytes": sum(t.nbytes for t in tree_leaves(tree))}
+            # every byte of both read plans (a delta's and its base's)
+            # preadv'd straight into its destination
+            read = sum(stats[k - 1].stored_bytes for k in (step, base) if k is not None)
+            assert counts == {"restore.h2d_bytes": sum(t.nbytes for t in tree_leaves(tree)),
+                              "pfs.read_direct_bytes": read, "pfs.read_copied_bytes": 0}
             assert rr.bytes_read == stats[0].stored_bytes   # a delta's base is read last
         # a scrub's reads are no restore's
         report = mgr.validate(2)
@@ -289,8 +293,7 @@ def test_restores_onto_the_card_decode_into_pinned_views(tmp_path):
         pytest.skip("needs a CUDA device: page-locked memory and the copy to the card")
     saver = manager(tmp_path)
     try:
-        for step in (1, 2):
-            saver.save(step, state(step))
+        stats = [saver.save(step, state(step)) for step in (1, 2)]
         saver.wait()
         assert not saver.flush_errors
     finally:
@@ -321,8 +324,10 @@ def test_restores_onto_the_card_decode_into_pinned_views(tmp_path):
             assert all(t.is_pinned() for t in hosts[-1])
             assert len({t.untyped_storage().data_ptr() for t in hosts[-1]}) == 1
             n = sum(t.nbytes for t in want)
+            read = sum(stats[k].stored_bytes for k in range(step))  # step 2 reads its base too
             assert counts == {"restore.h2d_bytes": n, "restore.view_bytes": n,
-                              "restore.pinned_bytes": n}
+                              "restore.pinned_bytes": n,
+                              "pfs.read_direct_bytes": read, "pfs.read_copied_bytes": 0}
     finally:
         mgr.close()
 
