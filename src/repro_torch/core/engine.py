@@ -12,7 +12,8 @@ Levels (VELOC semantics):
   own pool — never queued behind async flush traffic), with fsyncs
   batched per node directory — the blocking window is parallel
   node-local bandwidth, not a per-rank Python loop
-  (``parallel_local=False`` keeps the seed sequential path);
+  (``parallel_local=False`` writes the blobs one by one instead, each
+  fsynced and renamed into place);
 * **L2** — external PFS, written *asynchronously* by the active backend
   through one of the aggregation strategies (``file_per_process`` |
   ``posix`` | ``mpiio`` | ``stripe_aligned`` | ``gio_sync``).
@@ -48,9 +49,9 @@ docs/OPERATIONS.md for the full lifecycle state machine):
   write bandwidth so the drain leaves the application its NIC share —
   the same policy :mod:`repro_torch.core.sim` prices, so the simulated and
   real trade-off curves agree.
-* **crash-resumable flushes** (``resumable_flushes=True``): each flush
-  first persists its manifest at ``status="flush_partial"`` (carrying
-  the full columnar placement) and journals every completed extent
+* **crash-resumable flushes**: each flush first persists its manifest
+  at ``status="flush_partial"`` (carrying the full columnar placement)
+  and journals every completed extent
   (:class:`~repro_torch.core.storage.FlushJournal`); a flush interrupted by
   ``close()``, a fault hook or process death is finished by
   :meth:`CheckpointManager.resume_flushes` from the last completed
@@ -180,11 +181,6 @@ class CheckpointConfig:
     # (quantize_tree + serialize_tree + np.array_equal dirty scan),
     # kept as the executable spec the staged path is byte-identical to.
     device_precodec: bool = False
-    # Align host-path rank splits to the global chunk_size grid (the
-    # split encode_state_staged always uses).  Off, ranks balance by
-    # bytes and interior ranks get tail chunks; on, host and device
-    # encodings of the same state are chunk-for-chunk comparable.
-    chunk_aligned_split: bool = False
     delta_every: int = 4               # full ckpt cadence under zstd+delta
     partner_replication: bool = False  # L1 peer replica (node-failure cover)
     keep_n: Optional[int] = None       # GC: retain this many newest steps
@@ -195,17 +191,13 @@ class CheckpointConfig:
     # (VELOC semantics: never let the async channel grow unboundedly).
     max_pending_flushes: int = 2
     # Local-phase execution.  parallel_local runs per-rank encode + CRC
-    # + L1 write (+ partner replica) through the manager's own local
-    # worker pool (kept separate from the executor's flush pool so the
-    # blocking window never queues behind async PFS writes), with
-    # fsyncs batched per node directory; zero_copy uses the
-    # preallocated-buffer serializer whose codec-none blobs are
-    # memoryview slices of the stream.  Turning either off selects the
-    # seed reference path (sequential item loop, per-file fsync) that
-    # the equivalence tests and benchmarks/save_phase.py compare against.
+    # + L1 write (+ partner replica) as one task each on the manager's
+    # own local worker pool (kept separate from the executor's flush
+    # pool so the blocking window never queues behind async PFS
+    # writes), with fsyncs batched per node directory.  Off, the L1
+    # blobs are written one after another, each fsynced and renamed
+    # into place: slower, but durable per file across power loss.
     parallel_local: bool = True
-    zero_copy: bool = True
-    local_workers: int = 0             # 0 = auto: min(16, max(8, 2*cpus))
     # ---- adaptive flush runtime (docs/OPERATIONS.md) ----
     # Supersession: skip/cancel stale queued or mid-flight flushes when
     # a newer step arrives.  Protected (never superseded): full
@@ -219,11 +211,6 @@ class CheckpointConfig:
     # Tseng interference trade-off, priced identically by core/sim.py
     # via simulate_flush(flush_bw_cap=...)); no throttle when load = 0.
     flush_bw_cap: float = 0.0
-    # Crash-resumable flushes: persist the manifest at "flush_partial"
-    # (with its full placement) before writing and journal each
-    # completed extent, so interrupted flushes finish via
-    # resume_flushes() instead of restarting from byte zero.
-    resumable_flushes: bool = True
     # ---- transient-retry I/O (self-healing runtime) ----
     # Every raw blob/extent read and write is retried on transient
     # errno failures (classify_error) with bounded exponential backoff
@@ -273,12 +260,12 @@ class CheckpointConfig:
 
 @dataclass
 class SaveStats:
-    """Per-save telemetry.  On the fused fast path (``zero_copy`` +
-    ``parallel_local``) the per-rank L1 writes happen *inside* the
-    encode tasks, so ``encode_time`` covers serialize+encode+CRC+drain
-    and ``local_time`` is the durability tail (batched directory fsyncs
-    + local manifest).  On the reference path they keep the seed split:
-    encode vs sequential L1 writes.  ``encode_time + local_time`` is the
+    """Per-save telemetry.  On the fused path (``parallel_local``) the
+    per-rank L1 writes happen *inside* the encode tasks, so
+    ``encode_time`` covers serialize+encode+CRC+drain and
+    ``local_time`` is the durability tail (batched directory fsyncs +
+    local manifest).  On the sequential path they split as encode vs
+    per-file-fsynced L1 writes.  ``encode_time + local_time`` is the
     blocking window either way."""
 
     step: int
@@ -582,43 +569,33 @@ class CheckpointManager:
                         sync=False, atomic=False,
                     )
 
-            fused = cfg.zero_copy and pool is not None
+            # fused parallel local phase: each pooled rank task encodes,
+            # CRCs and writes its L1 blob (+ partner replica) in one go —
+            # CRC of one rank overlaps the file write of another
+            rank_sink = drain_rank if pool is not None else None
             stage_s = stage_wait_s = 0.0
             if cfg.device_precodec:
                 enc, stage_s, stage_wait_s = self._encode_device(
-                    step, state, pool, drain_rank if fused else None
-                )
-            elif cfg.zero_copy:
-                # fused parallel local phase: each pooled rank task encodes,
-                # CRCs and writes its L1 blob (+ partner replica) in one go —
-                # CRC of one rank overlaps the file write of another
-                enc = encode_state(
-                    step, state, self.cluster, codec=cfg.codec, base=base,
-                    chunk_aligned=cfg.chunk_aligned_split,
-                    pool=pool, rank_sink=drain_rank if fused else None,
-                    chunk_size=cfg.chunk_size,
+                    step, state, pool, rank_sink
                 )
             else:
-                from repro_torch.core.serialize_ref import encode_state_reference
-
-                enc = encode_state_reference(
-                    step, state, self.cluster, codec=cfg.codec, base=base
+                enc = encode_state(
+                    step, state, self.cluster, codec=cfg.codec, base=base,
+                    pool=pool, rank_sink=rank_sink, chunk_size=cfg.chunk_size,
                 )
             enc.manifest.precodec = cfg.precodec
 
         # ---- local phase (blocking) ----
         with telemetry.Timer("save.l1_sync", step=step) as l1_sync:
             if pool is None:
-                # seed reference path: sequential writes, fsync per file
+                # sequential path: atomic writes, fsync per file
                 for rank, blob in enumerate(enc.blobs):
                     node = c.node_of_rank(rank)
                     self.local.write_blob(node, step, rank, blob)
-                    if cfg.partner_replication and c.n_nodes > 1:
+                    if replicate:
                         partner = (node + 1) % c.n_nodes
                         self.local.write_blob(partner, step, rank, blob, partner=True)
             else:
-                if not fused:  # reference encode + parallel drain
-                    list(pool.map(lambda j: drain_rank(*j), enumerate(enc.blobs)))
                 # batched durability: one fsync per node directory (the
                 # blobs span every rank, hence every node — replicas too)
                 list(pool.map(
@@ -687,7 +664,7 @@ class CheckpointManager:
             except (CircuitOpenError, OSError) as e:
                 # degraded mode, sync flavor: save() still succeeds —
                 # the step parks at flush_partial, health_check() drains
-                if self._pfs_degraded() and cfg.resumable_flushes:
+                if self._pfs_degraded():
                     self._park_job(job, e)
                 else:
                     raise
@@ -828,10 +805,9 @@ class CheckpointManager:
         if self._local_exec is None:
             cpus = os.cpu_count() or 4
             if self.cfg.codec == "none":
-                auto = min(16, max(8, 2 * cpus))
+                workers = min(16, max(8, 2 * cpus))
             else:
-                auto = min(16, max(4, cpus + 2))
-            workers = self.cfg.local_workers or auto
+                workers = min(16, max(4, cpus + 2))
             self._local_exec = ThreadPoolExecutor(
                 max_workers=workers, thread_name_prefix="ckpt-local"
             )
@@ -906,13 +882,9 @@ class CheckpointManager:
         its bytes and cancelling it would waste more PFS bandwidth than
         it frees.  The parked step keeps its placement + journal (the
         resumable-flush machinery), so it drains through
-        :meth:`resume_flushes` once the budget has headroom again;
-        without ``resumable_flushes`` there is nothing to park *with*,
-        so this manager is simply not preemptible.  Returns True when a
-        slot was released.
+        :meth:`resume_flushes` once the budget has headroom again.
+        Returns True when a slot was released.
         """
-        if not self.cfg.resumable_flushes:
-            return False
         with self._lock:
             victim: Optional[_FlushJob] = None
             for s in sorted(self._pending):
@@ -1068,22 +1040,14 @@ class CheckpointManager:
                 if job.superseded:
                     self._note_superseded(step, "mid_flush")
                 else:
-                    # close()-deadline interruption.  Not an error —
-                    # but only resumable when journaling was on.
+                    # close()-deadline interruption: not an error, the
+                    # journal makes it resumable
                     with self._lock:
                         self._interrupted.append(step)
-                    if self.cfg.resumable_flushes:
-                        log.warning(
-                            "flush for step %d interrupted; resumable "
-                            "via resume_flushes()", step,
-                        )
-                    else:
-                        log.warning(
-                            "flush for step %d interrupted with "
-                            "resumable_flushes=False: the step exists on "
-                            "L1 only — re-save or re-flush it before "
-                            "relying on the PFS", step,
-                        )
+                    log.warning(
+                        "flush for step %d interrupted; resumable "
+                        "via resume_flushes()", step,
+                    )
             except OSError as e:
                 if self._pfs_degraded():
                     # the op that tripped the breaker: same parking as a
@@ -1127,19 +1091,9 @@ class CheckpointManager:
         """Park a flush the PFS outage prevented: persist the write set
         (manifest at ``flush_partial`` with full placement) so the
         post-outage drain finishes it via :meth:`resume_flushes` —
-        journaled progress, if any, is kept.  Without
-        ``resumable_flushes`` there is nothing to park *with*, so the
-        step records a flush error exactly like the pre-health runtime.
+        journaled progress, if any, is kept.
         """
         step = job.enc.step
-        if not self.cfg.resumable_flushes:
-            log.error(
-                "flush for step %d failed with the PFS circuit open and "
-                "resumable_flushes=False: the step exists on L1 only", step,
-            )
-            with self._lock:
-                self._flush_errors.append((step, repr(err)))
-            return
         man = job.enc.manifest
         if man.status != "flush_partial" or man.placement is None:
             # short-circuited before _do_flush persisted the write set
@@ -1407,24 +1361,22 @@ class CheckpointManager:
         man.strategy = plan.strategy
         man.files = dict(plan.files)
         man.placement = placement_from_plan(plan)
-        journal: Optional[FlushJournal] = None
-        if self.cfg.resumable_flushes:
-            # commit the write set *before* the first byte: a
-            # flush_partial manifest (full columnar placement + file
-            # sizes) plus the extent journal is everything
-            # resume_flushes() needs after any interruption.  fresh=True:
-            # a journal left by a previous incarnation of this step
-            # describes *different bytes* and must never skip writes here.
-            man.status = "flush_partial"
-            self._write_manifest_pfs(man)
-            journal = FlushJournal(self._journal_path(enc.step), fresh=True)
+        # commit the write set *before* the first byte: a flush_partial
+        # manifest (full columnar placement + file sizes) plus the
+        # extent journal is everything resume_flushes() needs after any
+        # interruption.  fresh=True: a journal left by a previous
+        # incarnation of this step describes *different bytes* and must
+        # never skip writes here.
+        man.status = "flush_partial"
+        self._write_manifest_pfs(man)
+        journal = FlushJournal(self._journal_path(enc.step), fresh=True)
         try:
             res = self.executor.execute(
                 plan, enc.step,
                 cancel=job.token, limiter=self._limiter, journal=journal,
             )
         except FlushCancelled:
-            if job.superseded and self.cfg.resumable_flushes:
+            if job.superseded:
                 # a superseded partial is dead, not resumable: newer
                 # state already replaced it — mark it so resume skips it
                 man.status = "superseded"
@@ -1433,8 +1385,7 @@ class CheckpointManager:
         man.status = "flush_done"
         self._write_manifest_pfs(man)
         self._notify_flush_done(enc.step)
-        if journal is not None:
-            journal.unlink()
+        journal.unlink()
         if self.cfg.keep_n is not None:
             try:
                 self._gc()
@@ -1537,11 +1488,7 @@ class CheckpointManager:
                     "close(): flush worker still busy after %.1fs; "
                     "cancelling %d pending flush(es) for steps %s (%s)",
                     timeout, len(lost), lost,
-                    "progress journaled; finish with resume_flushes()"
-                    if self.cfg.resumable_flushes
-                    else "resumable_flushes=False: these steps exist on "
-                    "L1 only — re-save or flush them before relying on "
-                    "the PFS",
+                    "progress journaled; finish with resume_flushes()",
                 )
                 self._worker.join(timeout=max(5.0, timeout))
                 if self._worker.is_alive():
@@ -1573,9 +1520,8 @@ class CheckpointManager:
     @property
     def interrupted_steps(self) -> List[int]:
         """Steps whose flush was interrupted (e.g. by a ``close()``
-        deadline).  With ``resumable_flushes=True`` their progress is
-        journaled — finish via :meth:`resume_flushes`; with it off they
-        exist on L1 only and must be re-saved or re-flushed."""
+        deadline).  Their progress is journaled — finish via
+        :meth:`resume_flushes`."""
         with self._lock:
             return sorted(set(self._interrupted))
 
@@ -1762,12 +1708,13 @@ class CheckpointManager:
                     tree = deserialize_tree(l0.stream, l0.manifest.leaves, tgt)
                     tree = self._maybe_dequant(l0.manifest, tree, target)
                 return s, self._place(tree, sharding_fn, s)
-            for loader in (self._restore_from_pfs, self._restore_from_local):
+            for level in ("pfs", "local"):
                 try:
-                    tree = loader(s, target, sharding_fn)
+                    man, blobs, verify = self._level_blobs(s, level)
+                    tree = self._decode(man, s, blobs, target, sharding_fn, verify=verify)
                     return s, self._place(tree, sharding_fn, s)
                 except Exception as e:
-                    errors.append(f"step {s} via {loader.__name__}: {e!r}")
+                    errors.append(f"step {s} via {level}: {e!r}")
         raise FileNotFoundError(
             "no restorable checkpoint found; attempts: " + "; ".join(errors[:8])
         )
@@ -1824,8 +1771,8 @@ class CheckpointManager:
     def _decode_pool(self) -> Optional[ThreadPoolExecutor]:
         """Pool for restore-side work (chunk decompress, CRC, dequant):
         the manager's own local pool — restores never queue behind async
-        flush traffic either.  ``parallel_local=False`` keeps the seed's
-        sequential decode."""
+        flush traffic either.  ``parallel_local=False`` decodes
+        sequentially."""
         return self._local_pool() if self.cfg.parallel_local else None
 
     def _hedge_policy(
@@ -2005,22 +1952,22 @@ class CheckpointManager:
                 )
             return
 
-    def _restore_from_pfs(self, step: int, target: Any, sharding_fn) -> Any:
-        man = self._manifest_pfs(step)
-        self._check_delta_base(man)
+    def _level_blobs(self, step: int, level: str) -> Tuple[Manifest, List[Any], bool]:
+        """``step``'s copy on one level (``"pfs"`` or ``"local"``): its
+        manifest, delta base checked; its stored rank blobs; and whether
+        the decode must still CRC them.  Under ``verify_on_restore``
+        PFS blobs are checked on arrival by the read plan, L1 blobs in
+        decode.  Both restores of a whole step, a target's and a delta
+        base's, go down the levels through here."""
         verify = self.cfg.verify_on_restore
-        by_rank = self._read_blobs_pfs(man, step, verify=verify)
-        blobs = [by_rank[r] for r in range(man.world_size)]
-        # the arrival hook above already CRC-checked each blob
-        return self._decode(man, step, blobs, target, sharding_fn, verify=False)
-
-    def _restore_from_local(self, step: int, target: Any, sharding_fn) -> Any:
+        if level == "pfs":
+            man = self._manifest_pfs(step)
+            self._check_delta_base(man)
+            by_rank = self._read_blobs_pfs(man, step, verify=verify)
+            return man, [by_rank[r] for r in range(man.world_size)], False
         man = self._manifest_local(step)
         self._check_delta_base(man)
-        blobs = self._local_blobs(man, step)
-        return self._decode(
-            man, step, blobs, target, sharding_fn, verify=self.cfg.verify_on_restore
-        )
+        return man, self._local_blobs(man, step), verify
 
     def _decode(
         self, man: Manifest, step: int, blobs: List[Any], target: Any, sharding_fn,
@@ -2098,32 +2045,21 @@ class CheckpointManager:
                 return self._l0.stream
             if self._last_full is not None and self._last_full.step == step:
                 return self._last_full.stream
-        verify = self.cfg.verify_on_restore
         errors: List[str] = []
-        for getter, pfs in (
-            (self._manifest_pfs, True),
-            (self._manifest_local, False),
-        ):
+        for level in ("pfs", "local"):
             try:
-                man = getter(step)
-                self._check_delta_base(man)
-                if pfs:
-                    by_rank = self._read_blobs_pfs(man, step, verify=verify)
-                    blobs: List[Any] = [by_rank[r] for r in range(man.world_size)]
-                else:
-                    blobs = self._local_blobs(man, step)
+                man, blobs, verify = self._level_blobs(step, level)
                 base = (
                     self._load_stream(man.base_step)
                     if man.base_step is not None
                     else None
                 )
                 return decode_stream(
-                    man, blobs, base_stream=base,
-                    verify=verify and not pfs,  # pfs: verified on arrival
+                    man, blobs, base_stream=base, verify=verify,
                     pool=self._decode_pool(),
                 )
             except Exception as e:
-                errors.append(f"{'pfs' if pfs else 'local'}: {e!r}")
+                errors.append(f"{level}: {e!r}")
         raise IOError(
             f"cannot load base stream for step {step}; " + "; ".join(errors)
         )

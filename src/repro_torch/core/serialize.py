@@ -689,11 +689,6 @@ def decode_blob_reference(
     raise ValueError(f"unknown codec {codec!r}")
 
 
-# Back-compat aliases (serialize_ref and legacy callers import these).
-encode_blob = encode_blob_reference
-decode_blob = decode_blob_reference
-
-
 # ---------------------------------------------------------------------------
 # Chunk-framed codecs
 # ---------------------------------------------------------------------------

@@ -987,7 +987,7 @@ class LocalStore:
         ladder already assumes lost on node failure — partner replicas
         and the PFS level cover it, and restore CRC-checks every blob
         before trusting it.  Per-file power-loss durability remains
-        available via the reference path (``parallel_local=False``).
+        available via the sequential local phase (``parallel_local=False``).
 
         The atomic+sync path fsyncs the *parent directory* after the
         rename: ``os.replace`` alone leaves the new directory entry in
@@ -1047,8 +1047,8 @@ class LocalStore:
         directory: a single directory fsync covering every entry that
         landed there.  Blob *data* durability on the parallel path is
         explicitly entrusted to OS writeback + the level ladder (see
-        :meth:`write_blob`); the per-file-fsync reference path keeps
-        the seed's stronger guarantee."""
+        :meth:`write_blob`); the sequential per-file-fsync local phase
+        (``parallel_local=False``) keeps the stronger guarantee."""
         self._fsync_dir(self.node_dir(node, step))
 
     def read_blob(
@@ -1183,8 +1183,7 @@ class RealExecutor:
     fresh ``ThreadPoolExecutor`` per round.  Adjacent writes that are
     contiguous in both the source blob and the destination file coalesce
     into a single L1 pread + PFS pwrite before being issued.  The seed
-    item-loop executor survives as :meth:`execute_reference`, the
-    executable spec the byte-identical-files test holds this path to.
+    item-loop executor is a spec of the ``repro`` package only.
     """
 
     def __init__(
@@ -1508,88 +1507,6 @@ class RealExecutor:
                 # subsequent failures/cancellations: drain silently
         if first_err is not None:
             raise first_err
-
-    # ---- seed executor (executable spec) ---------------------------------
-
-    def execute_reference(self, plan: FlushPlan, step: int) -> FlushResult:
-        """The seed item-loop executor, kept verbatim: materializes
-        ``plan.writes``, spins up a fresh ``ThreadPoolExecutor`` per
-        round, no coalescing.  tests/test_save_phase.py proves
-        :meth:`execute` produces byte-identical files."""
-        t0 = time.perf_counter()
-        sdir = self.step_dir(step)
-        sdir.mkdir(parents=True, exist_ok=True)
-
-        fds: Dict[str, int] = {}
-        try:
-            for fname, size in plan.files.items():
-                path = sdir / fname
-                fd = os.open(str(path), os.O_CREAT | os.O_WRONLY, 0o644)
-                os.ftruncate(fd, size)
-                fds[fname] = fd
-
-            cluster = plan.cluster
-            lock = threading.Lock()
-            total = {"bytes": 0, "writes": 0}
-
-            def do_write(w: WriteItem) -> None:
-                if self.fault_hook is not None:
-                    self.fault_hook(w)
-                home = cluster.node_of_rank(w.src_rank)
-                data = self.local.read_slice(home, step, w.src_rank, w.src_offset, w.size)
-                if len(data) != w.size:
-                    raise IOError(
-                        f"short read: rank {w.src_rank} [{w.src_offset}:"
-                        f"{w.src_offset + w.size})"
-                    )
-                os.pwrite(fds[w.file], data, w.file_offset)
-                with lock:
-                    total["bytes"] += w.size
-                    total["writes"] += 1
-
-            n_backends = len({w.backend for w in plan.writes}) or 1
-            workers = min(16, self.io_threads * n_backends)
-
-            if plan.barrier_per_round:
-                by_round: Dict[int, List[WriteItem]] = {}
-                for w in plan.writes:
-                    by_round.setdefault(w.round, []).append(w)
-                for rnd in sorted(by_round):
-                    self._run_batch(by_round[rnd], do_write, workers)
-            else:
-                self._run_batch(list(plan.writes), do_write, workers)
-
-            for fd in fds.values():
-                os.fsync(fd)
-            return FlushResult(
-                step=step,
-                duration=time.perf_counter() - t0,
-                bytes_written=total["bytes"],
-                n_writes=total["writes"],
-            )
-        finally:
-            for fd in fds.values():
-                try:
-                    os.close(fd)
-                except OSError:
-                    pass
-
-    @staticmethod
-    def _run_batch(
-        batch: List[WriteItem],
-        fn: Callable[[WriteItem], None],
-        workers: int,
-    ) -> None:
-        if not batch:
-            return
-        if workers <= 1 or len(batch) == 1:
-            for w in batch:
-                fn(w)
-            return
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            futs = [ex.submit(fn, w) for w in batch]
-            for f in as_completed(futs):
-                f.result()  # re-raise worker exceptions
 
     # ---- read side --------------------------------------------------------
 

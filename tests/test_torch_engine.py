@@ -121,6 +121,34 @@ def test_host_path_cross_restore(tmp_path, src, dst, codec, strategy):
         assert_same(restore(dst, tmp_path, step, numpy_state(0), **kw), want)
 
 
+@pytest.mark.parametrize("damaged", ["delta_on_l1", "base_on_l1"])
+def test_delta_and_base_restore_from_different_levels(tmp_path, damaged):
+    """A delta and its base come from different levels: one step's PFS
+    payload is damaged (its arrival CRC fails) and the other step's L1
+    copy is gone, so the port must take the delta and the base down
+    different rungs of the one level ladder and still restore the
+    JAX package's tree byte for byte."""
+    states = _two_steps()
+    kw = dict(strategy="file_per_process", codec="zstd+delta", chunk_size=4096)
+    save_steps("jax", tmp_path, states, **kw)
+    man = T.Manifest.from_json(
+        (tmp_path / "pfs" / "step_00000002" / "manifest.json").read_text()
+    )
+    assert man.base_step == 1
+    on_pfs, on_l1 = (1, 2) if damaged == "delta_on_l1" else (2, 1)
+    payload = [p for p in (tmp_path / "pfs" / f"step_{on_l1:08d}").iterdir()
+               if p.suffix != ".json"]
+    assert payload
+    for p in payload:
+        p.write_bytes(bytes(b ^ 0xFF for b in p.read_bytes()))
+    mgr = manager("torch", tmp_path, (2, 2), **kw)
+    mgr.local.gc_step(on_pfs)
+    got_step, tree = mgr.restore(to_pkg("torch", numpy_state(0)), step=2)
+    mgr.close()
+    assert got_step == 2
+    assert_same(as_numpy("torch", tree), states[1])
+
+
 @pytest.mark.parametrize("src,dst", DIRECTIONS)
 @pytest.mark.parametrize("precodec", ["none", "int8"])
 def test_device_precodec_cross_restore(tmp_path, src, dst, precodec):

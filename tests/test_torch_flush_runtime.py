@@ -424,6 +424,57 @@ def test_fresh_flush_never_reuses_a_stale_journal(tmp_path):
     mgr.close()
 
 
+@pytest.mark.parametrize("async_flush", [True, False])
+@pytest.mark.parametrize("pkg", ["repro", "repro_torch"])
+def test_every_flush_commits_its_write_set_before_the_first_byte(
+    tmp_path, pkg, async_flush
+):
+    """Journaling is unconditional: when the first PFS write starts
+    the step's manifest is already at ``flush_partial`` with its
+    placement, and the executor holds the step's journal; once the
+    flush drains the manifest reads ``flush_done`` and the journal is
+    gone.  The journal's file appears only with its first batch of
+    records, each a durability claim made after the data's fsync, so
+    it is the journal handed to the executor that is checked.  The port
+    is held to the JAX package on it."""
+    import repro.core as R
+    import repro_torch.core as T
+    from repro_torch.utils.convert import tree_to_numpy
+
+    core = R if pkg == "repro" else T
+    man_path = tmp_path / "pfs" / "step_00000001" / "manifest.json"
+    seen, journals = [], []
+    lock = threading.Lock()
+
+    def hook(_w):
+        with lock:
+            if not seen:
+                man = core.Manifest.from_json(man_path.read_text())
+                seen.append((man.status, man.placement is not None))
+
+    cfg = dict(root=str(tmp_path), cluster=core.theta_like(2, 2),
+               strategy="stripe_aligned", async_flush=async_flush)
+    if pkg == "repro_torch":
+        cfg["device"] = "cpu"
+    mgr = core.CheckpointManager(core.CheckpointConfig(**cfg), fault_hook=hook)
+    execute = mgr.executor.execute
+
+    def spy(plan, step, **kw):
+        journals.append(kw["journal"].path)
+        return execute(plan, step, **kw)
+
+    mgr.executor.execute = spy
+    state = state_tree(1) if pkg == "repro_torch" else tree_to_numpy(state_tree(1))
+    mgr.save(1, state)
+    mgr.wait()
+    assert seen == [("flush_partial", True)]
+    assert journals == [mgr._journal_path(1)]
+    assert core.Manifest.from_json(man_path.read_text()).status == "flush_done"
+    assert not mgr._journal_path(1).exists()
+    assert not mgr.flush_errors
+    mgr.close()
+
+
 def _pfs_payload_files(root):
     step_dirs = sorted((root / "pfs").glob("step_*"))
     out = {}
